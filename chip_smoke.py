@@ -11,7 +11,16 @@ the card, then drives the port's main path once: `analyze
 28-episode, 1200 s synthetic season (bench.py's default configuration:
 16 kHz mono WAV, 85 s opening at 5-40 s, 70 s ending, seed 20260816), and
 checks the result against the truth, the canonical host oracle and the
-numpy search engine.
+numpy search engine. Then the library path:
+
+- long bucket: the count walk at n_pad 32,768 (per-row-block staging)
+  against its plain version, and a 2-episode search whose sides bucket
+  there;
+- library: bench.py's `mixed1000` library (1000 episodes x 2400 hashes,
+  20 shows, 499,500 pairs) searched by the auto route (direct flagging)
+  and by walk-all, and its first 300 episodes by the band-mask route;
+- mono route: the season at 11025 Hz mono through the pre-decoded mono
+  fingerprint path and the search.
 
 Every phase raises on failure: the script then exits nonzero and prints no
 result. On success the line before the last is a JSON object describing
@@ -45,6 +54,16 @@ VALUE_TOL = 5e-6
 # chunk of lanes, opening and ending buckets
 PAIRS, LANES = 378, 512
 N_PADS = (2560, 1536)
+# the smallest bucket whose hash rows do not fit in shared memory, and a
+# side length that buckets there
+LONG_N_PAD, LONG_HASHES = 32768, 30000
+# bench.py's mixed1000 (search_only_config): episodes, hashes per opening,
+# shows, shared run length, seed; the band route runs on the first
+# BAND_EPISODES
+LIB_EPISODES, LIB_HASHES, LIB_SHOWS, LIB_RUN, LIB_SEED = 1000, 2400, 20, 360, 11
+BAND_EPISODES = 300
+HASH_STEP_NS = 247619033
+TS0_NS = 2600090703
 
 
 def log(msg: str) -> None:
@@ -285,6 +304,294 @@ def engine_phase(torch, np, paths):
         f"{len(res[0])} SearchResults equal to NumpySearchEngine")
 
 
+def _planted_pairs(np, rng, lanes, n_pad, nv_lo):
+    """Random hash rows with one planted shared run of 100-400 hashes (one
+    flipped bit) per lane, and valid lengths in [nv_lo, n_pad]."""
+    src = rng.integers(0, 2**32, size=(lanes, n_pad), dtype=np.uint32)
+    dst = rng.integers(0, 2**32, size=(lanes, n_pad), dtype=np.uint32)
+    nv = rng.integers(nv_lo, n_pad + 1, size=lanes).astype(np.int32)
+    mv = rng.integers(nv_lo, n_pad + 1, size=lanes).astype(np.int32)
+    for p in range(lanes):
+        n = int(rng.integers(100, 400))
+        s0 = int(rng.integers(1, min(nv[p], mv[p]) - n))
+        d0 = int(rng.integers(1, min(nv[p], mv[p]) - n))
+        dst[p, d0 : d0 + n] = src[p, s0 : s0 + n]
+        dst[p, d0 + n // 2] ^= np.uint32(1 << int(rng.integers(32)))
+    return src, dst, nv, mv
+
+
+def _to_card(torch, np, a):
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).cuda()
+
+
+def long_bucket_phase(torch, np):
+    """The count walk at n_pad 32,768 against its plain version, exactly:
+    a full-mask lane, a lane with a gapped mask, a padding lane. Then a
+    2-episode search whose sides (30,000 hashes) bucket to 32,768, on the
+    count walk's per-row-block staging."""
+    from needle_tpu.data import FrameHashes
+    from needle_tpu.duration import Duration
+    from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.search import diag_runs as D
+
+    n_pad = LONG_N_PAD
+    rng = np.random.default_rng(SEED + 1)
+    src, dst, nv, mv = _planted_pairs(np, rng, 3, n_pad, int(0.9 * n_pad))
+    thr = np.array([10, 0, 10], np.int32)
+    lm = np.array([81, 1, np.iinfo(np.int32).max], np.int32)
+    n_groups = D.n_groups_for(n_pad)
+    bm = np.full((3, n_groups), D.full_block_mask(n_pad), np.int32)
+    bm[1] = rng.integers(0, 2**31, size=n_groups).astype(np.int32)  # gaps
+    bm[2] = 0  # a padding lane, as the engine fills them
+    args = [_to_card(torch, np, a) for a in (nv, mv, lm, thr, src, dst)]
+    args += [n_pad, _to_card(torch, np, bm)]
+    if n_pad <= D.WHOLE_ROW_MAX_NPAD:
+        raise AssertionError(f"n_pad {n_pad} takes the whole-row staging")
+    got = D.batch_counts(*args)
+    torch.cuda.synchronize()
+    want = D.batch_counts_reference(*args)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item())
+    flagged = int((want > 0).sum().item())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"count walk kernel != reference at n_pad {n_pad}")
+    if not want[0].any() or got[2].any():
+        raise AssertionError(
+            f"n_pad {n_pad}: the planted run of lane 0 was not flagged, or "
+            "the padding lane was"
+        )
+    plain = _median_ms(torch, lambda: D.batch_counts_reference(*args), 1)
+    kern = _median_ms(torch, lambda: D.batch_counts(*args), 10)
+    log(f"count walk n_pad {n_pad} (per-row-block staging), 3 lanes: kernel "
+        f"== reference on {flagged} flagged diagonals; kernel {kern:.3f} ms, "
+        f"plain {plain:.1f} ms")
+
+    n = LONG_HASHES
+    shared = rng.integers(0, 2**32, size=400, dtype=np.uint32)
+    at = (n // 25, n - 500)
+    fhs = []
+    for e in range(2):
+        h = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+        h[at[e] : at[e] + 400] = shared
+        ts = (TS0_NS + np.arange(n) * HASH_STEP_NS).astype(np.int64)
+        fhs.append(FrameHashes(h, ts, np.zeros(0, np.uint32),
+                               np.zeros(0, np.int64), Duration.from_millis(300),
+                               f"{e:032x}"))
+    before = D.LAUNCHES
+    cmp = Comparator([f"long{e}.mkv" for e in range(2)], device="cuda")
+    res = cmp.run_with_frame_hashes(fhs, False, False, False)
+    launches = D.LAUNCHES - before
+    if launches <= 0:
+        raise AssertionError("the long-bucket search never launched the kernel")
+    for r, a in zip(res, at):
+        want_s = (TS0_NS + a * HASH_STEP_NS) / 1e9
+        if r.opening is None or abs(r.opening[0].as_secs_f64() - want_s) > TRUTH_TOL_SECS:
+            raise AssertionError(f"long-bucket run not found: {r}")
+    if len(res) != 2:
+        raise AssertionError(f"long-bucket search found {len(res)} of 2 runs")
+    log(f"long-bucket search: 2 x {n} hashes (n_pad {n_pad}), planted run "
+        f"found in both, {launches} kernel launches")
+    return {"ms": kern, "plain_ms": plain, "max_abs_err": err}
+
+
+def _mixed_library(np, n_eps):
+    """bench.py's search_only_config(n_eps, n_shows=20) library, in numpy:
+    (FrameHashes list, planted opening start and end in seconds)."""
+    from needle_tpu.data import FrameHashes
+    from needle_tpu.duration import Duration
+
+    rng = np.random.default_rng(LIB_SEED)
+    shareds = [rng.integers(0, 2**32, size=LIB_RUN, dtype=np.uint32)
+               for _ in range(LIB_SHOWS)]
+    ts = (TS0_NS + np.arange(LIB_HASHES) * HASH_STEP_NS).astype(np.int64)
+    fhs, truth = [], []
+    for e in range(n_eps):
+        h = rng.integers(0, 2**32, size=LIB_HASHES, dtype=np.uint32)
+        at = 40 + (e % 11) * 60
+        h[at : at + LIB_RUN] = shareds[e % LIB_SHOWS]
+        fhs.append(FrameHashes(h, ts, np.zeros(0, np.uint32),
+                               np.zeros(0, np.int64), Duration.from_millis(300),
+                               f"{e:032x}"))
+        truth.append((ts[at] / 1e9, ts[at + LIB_RUN - 1] / 1e9))
+    return fhs, truth
+
+
+def _library_search(torch, fhs, env):
+    """One search of `fhs` on the card with `env` set: (entries per pair,
+    SearchResults, wall s, search.prefilter s, count walk launches,
+    direct items, walk calls that got band masks)."""
+    from needle_tpu.tracing import metrics
+    from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.search import diag_runs as D
+    from needle_tpu_torch.search import torch_impl as T
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    masked = []
+    real_walk = T.TorchSearchEngine._walk
+
+    def walk(self, w_sa, w_sb, w_lm, band_masks, *rest):
+        masked.append(band_masks is not None)
+        return real_walk(self, w_sa, w_sb, w_lm, band_masks, *rest)
+
+    T.TorchSearchEngine._walk = walk
+    try:
+        cmp = Comparator([f"ep{k:04}.mkv" for k in range(len(fhs))], device="cuda")
+        pairs = cmp.pair_order(len(fhs))
+        metrics.reset()
+        D.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infos = cmp.search_pair_infos(fhs, pairs)
+        data = [(i, j, info) for (i, j), info in zip(pairs, infos)
+                if not info.is_empty()]
+        res = cmp.finalize_results(data, False, False, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        T.TorchSearchEngine._walk = real_walk
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    snap = metrics.snapshot()
+    entries = [[list(x) for x in (i.src_openings, i.dst_openings)] for i in infos]
+    results = [(r.opening, r.ending) for r in res]
+    return {
+        "entries": entries, "results": results, "wall": wall,
+        "prefilter_s": snap.get("search.prefilter", (0.0, 0))[0],
+        "launches": D.LAUNCHES,
+        "direct_items": snap.get("search.direct_items", (0.0, 0))[0],
+        "skipped": snap.get("search.prefilter_skipped", (0.0, 0))[0],
+        "masked_walks": sum(masked), "walks": len(masked),
+        "n_entries": sum(len(e[0]) for e in entries),
+        "stages": {k: round(v[0], 3) for k, v in sorted(snap.items())
+                   if k.startswith("search.") and k not in (
+                       "search.direct_items", "search.prefilter_skipped")},
+    }
+
+
+def library_phase(torch, np):
+    """mixed1000 by the auto route (direct, no count walk) and walk-all;
+    equal, every opening at its planted position. The first 300 episodes
+    by the band route (count walk on real masks) == walk-all."""
+    fhs, truth = _mixed_library(np, LIB_EPISODES)
+    n_pairs = LIB_EPISODES * (LIB_EPISODES - 1) // 2
+    auto = _library_search(torch, fhs, {"NEEDLE_TPU_SEARCH_PREFILTER": "auto",
+                                        "NEEDLE_TPU_SEARCH_DIRECT": "auto"})
+    walk = _library_search(torch, fhs, {"NEEDLE_TPU_SEARCH_PREFILTER": "off"})
+    walls = {}
+    for name, r in (("direct (auto)", auto), ("walk-all", walk)):
+        log(f"mixed1000 {name}: {n_pairs} pairs, wall {r['wall']:.3f} s, "
+            f"search.prefilter {r['prefilter_s']:.3f} s, count walk launches "
+            f"{r['launches']}, direct items {r['direct_items']:.0f}, "
+            f"{r['n_entries']} RunEntries, {len(r['results'])} SearchResults; "
+            f"stage seconds {json.dumps(r['stages'])}")
+        walls[name] = (r["wall"], r["prefilter_s"])
+    if auto["direct_items"] <= 0 or auto["launches"] != 0 or auto["walks"]:
+        raise AssertionError("mixed1000's auto route was not direct flagging")
+    if walk["launches"] <= 0 or walk["direct_items"] or walk["masked_walks"]:
+        raise AssertionError("walk-all did not walk every pair unmasked")
+    if auto["entries"] != walk["entries"] or auto["results"] != walk["results"]:
+        raise AssertionError("mixed1000: direct route != walk-all")
+    if len(auto["results"]) != LIB_EPISODES:
+        raise AssertionError(f"mixed1000: {len(auto['results'])} results")
+    for (op, _), (s0, s1) in zip(auto["results"], truth):
+        if (op is None or abs(op[0].as_secs_f64() - s0) > TRUTH_TOL_SECS
+                or abs(op[1].as_secs_f64() - s1) > TRUTH_TOL_SECS):
+            raise AssertionError(f"mixed1000 opening {op} != planted {(s0, s1)}")
+    log(f"mixed1000: direct == walk-all; all {LIB_EPISODES} openings at "
+        f"their planted positions (within {TRUTH_TOL_SECS:.0f} s)")
+
+    sub = fhs[:BAND_EPISODES]
+    n_sub = BAND_EPISODES * (BAND_EPISODES - 1) // 2
+    band = _library_search(torch, sub, {"NEEDLE_TPU_SEARCH_PREFILTER": "auto",
+                                        "NEEDLE_TPU_SEARCH_DIRECT": "off"})
+    walk_sub = _library_search(torch, sub, {"NEEDLE_TPU_SEARCH_PREFILTER": "off"})
+    for name, r in (("band", band), ("walk-all", walk_sub)):
+        log(f"mixed{BAND_EPISODES} {name}: {n_sub} pairs, wall {r['wall']:.3f} s, "
+            f"search.prefilter {r['prefilter_s']:.3f} s, count walk launches "
+            f"{r['launches']} ({r['masked_walks']} of {r['walks']} walks on band "
+            f"masks), pairs skipped {r['skipped']:.0f}; stage seconds "
+            f"{json.dumps(r['stages'])}")
+        walls[f"{name} {BAND_EPISODES}"] = (r["wall"], r["prefilter_s"])
+    if band["launches"] <= 0 or band["masked_walks"] != band["walks"] or not band["skipped"]:
+        raise AssertionError("the band route did not walk on real masks")
+    if band["entries"] != walk_sub["entries"] or band["results"] != walk_sub["results"]:
+        raise AssertionError(f"mixed{BAND_EPISODES}: band route != walk-all")
+    log(f"mixed{BAND_EPISODES}: band route == walk-all")
+    return walls
+
+
+def mono_phase(torch, np, workdir: Path):
+    """The season written at 11025 Hz mono and read with ingest.read_wav
+    (no FFmpeg), windowed as the Analyzer windows it, through the
+    pre-decoded mono route on the card: episodes 1-2 bit-exact against
+    fingerprint_numpy, and the search at accuracy 1.0."""
+    from needle_tpu import ingest
+    from needle_tpu.constants import DEFAULT_HASH_DURATION
+    from needle_tpu.data import FrameHashes
+    from needle_tpu.duration import Duration
+    from needle_tpu.fingerprint.numpy_impl import fingerprint_numpy
+    from needle_tpu.testing import make_synthetic_season
+    from needle_tpu_torch.analyzer import Analyzer
+    from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.fingerprint.torch_impl import fingerprint_batch
+
+    paths, op_truth, end_truth = make_synthetic_season(
+        workdir, num_episodes=NUM_EPISODES, episode_secs=EPISODE_SECS,
+        opening_secs=OPENING_SECS, opening_offset_range=(5.0, 40.0),
+        ending_secs=ENDING_SECS, rate=11025, seed=SEED,
+    )
+    analyzer = Analyzer(paths, device="cuda").with_include_endings(True)
+    windows, seeks = [], []
+    for p in paths:
+        samples, rate, channels = ingest.read_wav(p)
+        if (rate, channels) != (11025, 1):
+            raise AssertionError(f"{p.name}: {rate} Hz x {channels}")
+        # the Analyzer's opening and ending windows of this file
+        _, n_open, ending, _, _, _, seek_to = analyzer._raw_segments(p)
+        windows += [samples[:n_open], samples[len(samples) - len(ending):]]
+        seeks.append(seek_to)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hashes = fingerprint_batch(windows, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k in range(4):  # episodes 1-2, opening and ending windows
+        want = fingerprint_numpy(windows[k])
+        if not np.array_equal(hashes[k], want):
+            bad = np.flatnonzero(hashes[k] != want)
+            raise AssertionError(f"mono window {k}: hashes differ at {bad[:10]}")
+    hd = Duration.from_secs_f32(np.float32(DEFAULT_HASH_DURATION))
+    fhs = []
+    for e, seek_to in enumerate(seeks):
+        oh, ot = Analyzer._hashes_with_timestamps(hashes[2 * e], hd, None)
+        eh, et = Analyzer._hashes_with_timestamps(hashes[2 * e + 1], hd, seek_to)
+        fhs.append(FrameHashes(oh, ot, eh, et, hd, f"{e:032x}"))
+    cmp = Comparator(paths, device="cuda").with_include_endings(True)
+    res = cmp.run_with_frame_hashes(fhs, False, False, False)
+    ok = 0
+    for r, (op_s, op_e), (en_s, en_e) in zip(res, op_truth, end_truth):
+        ok += bool(
+            r.opening is not None and r.ending is not None
+            and abs(r.opening[0].as_secs_f64() - op_s) < TRUTH_TOL_SECS
+            and abs(r.opening[1].as_secs_f64() - op_e) < TRUTH_TOL_SECS
+            and abs(r.ending[0].as_secs_f64() - en_s) < TRUTH_TOL_SECS
+            and abs(r.ending[1].as_secs_f64() - en_e) < TRUTH_TOL_SECS
+        )
+    accuracy = ok / len(paths)
+    n_hashes = sum(len(h) for h in hashes)
+    log(f"mono route: {len(windows)} windows at 11025 Hz mono, {n_hashes} "
+        f"hashes in {wall:.3f} s (fingerprint_batch, rescan included); "
+        f"windows of episodes 1-2 bit-exact against fingerprint_numpy; "
+        f"search accuracy {accuracy}")
+    if accuracy != 1.0:
+        raise AssertionError(f"mono route accuracy {accuracy} != 1.0")
+
+
 def main() -> int:
     import torch
 
@@ -305,6 +612,10 @@ def main() -> int:
         )
         hash_phase(torch, np, paths)
         engine_phase(torch, np, paths)
+    long_bucket_phase(torch, np)
+    library_phase(torch, np)
+    with tempfile.TemporaryDirectory(prefix="needle_smoke_mono_") as tmp:
+        mono_phase(torch, np, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

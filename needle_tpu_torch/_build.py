@@ -35,8 +35,8 @@ _I = ctypes.c_int
 # C entry point -> argtypes; every entry point returns an int error code.
 SIGNATURES = {
     # nv, mv, lm, thr, bm, n_groups, src, dst, counts, chunk, n_pad, n_out,
-    # stream
-    "needle_diag_runs": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # whole_rows, stream
+    "needle_diag_runs": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,15 @@
-"""Analyzer on PyTorch: needle_tpu's Analyzer with the fused torch ingest.
+"""Analyzer on PyTorch: needle_tpu's Analyzer with the torch fingerprint
+paths.
 
 Raw-PCM sources (WAV, .pcm, .raw) are read as memmaps at their own rate
 and go through `fingerprint.torch_impl.IngestDispatcher` on the chosen
-device: decimation, downmix, resampling and fingerprinting all run there,
-and borderline hashes are rescanned exactly on the host. Timestamps, caching
-and `.needle.dat` output are the base class's, unchanged.
-
-Compressed media is not supported yet: it needs the pre-decoded mono path
-(ROADMAP queue 1, item 3). Such a file raises NotImplementedError; there is
-no fallback to the numpy backend.
+device: decimation, downmix, resampling and fingerprinting all run there.
+Compressed media (.mkv, .mp4, ...) is decoded on the host by the base
+class's native FFmpeg decode to 11025 Hz stereo, downmixed to mono, and
+fingerprinted by `fingerprint.torch_impl.fingerprint_batch` on the device.
+On both routes borderline hashes are rescanned exactly on the host.
+Timestamps, caching and `.needle.dat` output are the base class's,
+unchanged.
 """
 
 from __future__ import annotations
@@ -24,14 +25,15 @@ from needle_tpu.analyzer import Analyzer as _BaseAnalyzer
 from needle_tpu.data import FrameHashes, frame_hash_data_path
 from needle_tpu.duration import Duration
 from needle_tpu.errors import AnalyzerMissingPaths
+from needle_tpu.fingerprint.numpy_impl import downmix_stereo_i16
 from needle_tpu.util import compute_header_md5sum
 
-from .fingerprint.torch_impl import IngestDispatcher
+from .fingerprint.torch_impl import IngestDispatcher, fingerprint_batch
 
 
 class Analyzer(_BaseAnalyzer):
-    """Analyzes raw-PCM episodes into FrameHashes on a torch device ('cuda'
-    or 'cpu')."""
+    """Analyzes episodes into FrameHashes on a torch device ('cuda' or
+    'cpu')."""
 
     def __init__(self, videos: Sequence = (), device: str = "cuda"):
         super().__init__(videos, backend="torch")
@@ -93,11 +95,15 @@ class Analyzer(_BaseAnalyzer):
         self, videos: List[Path], hash_duration: Duration, persist: bool,
         threading: bool,
     ) -> List[FrameHashes]:
-        """One wave: threaded reads -> lane-chunk dispatches as they fill ->
-        assembly/persist. Cache semantics identical to needle_tpu's."""
+        """One wave: threaded reads and decodes -> lane-chunk dispatches as
+        they fill -> assembly/persist. Cache semantics identical to
+        needle_tpu's."""
         from needle_tpu.tracing import span
 
         def prepare(path):
+            """("cached", FrameHashes) or (md5, seek_to, has_ending, "raw",
+            raw segments) or (md5, seek_to, has_ending, "decoded", (opening
+            mono, ending mono or None))."""
             md5 = compute_header_md5sum(path)
             fhp = frame_hash_data_path(path)
             if not self.force and fhp.exists():
@@ -108,24 +114,34 @@ class Analyzer(_BaseAnalyzer):
                 if data is not None and data.md5() == md5:
                     print(f"Skipping analysis for {path}...")
                     return ("cached", data)
-            if not self._use_device_ingest(path):
-                raise NotImplementedError(
-                    f"{path}: needle_tpu_torch analyzes raw PCM (.wav, .pcm, "
-                    ".raw) only; compressed media needs the pre-decoded mono "
-                    "path (ROADMAP queue 1, item 3)"
-                )
-            return ("raw", md5, *self._raw_segments(path))
+            if self._use_device_ingest(path):
+                segs = self._raw_segments(path)
+                return (md5, segs[6], segs[2] is not None, "raw", segs[:6])
+            opening_pcm, ending_pcm, _, seek_to = self._decode_segments(path)
+            monos = (
+                downmix_stereo_i16(opening_pcm),
+                None if ending_pcm is None else downmix_stereo_i16(ending_pcm),
+            )
+            return (md5, seek_to, ending_pcm is not None, "decoded", monos)
 
         dispatchers: dict = {}  # (rate, channels) -> IngestDispatcher
+        mono_segments: List[np.ndarray] = []
+        mono_refs: List[tuple] = []  # (video index, "opening" / "ending")
         prepped: List[tuple] = []
 
         def consume(vi: int, item: tuple) -> None:
-            # each episode's windows join the device lane chunks as soon as
-            # it is read, so reads overlap the dispatches
+            # each episode's raw windows join the device lane chunks as soon
+            # as it is read, so reads overlap the dispatches
             prepped.append(item)
             if item[0] == "cached":
                 return
-            _, _, op_seg, op_nv, en_seg, en_nv, rate, channels, _ = item
+            if item[3] == "decoded":
+                for side, mono in zip(("opening", "ending"), item[4]):
+                    if mono is not None:
+                        mono_segments.append(mono)
+                        mono_refs.append((vi, side))
+                return
+            op_seg, op_nv, en_seg, en_nv, rate, channels = item[4]
             d = dispatchers.get((rate, channels))
             if d is None:
                 d = dispatchers[(rate, channels)] = IngestDispatcher(
@@ -148,7 +164,13 @@ class Analyzer(_BaseAnalyzer):
                     consume(vi, prepare(path))
 
         hashes_by_ref = {}
-        with span("analyze.fingerprint", raw=len(prepped)):
+        with span(
+            "analyze.fingerprint", mono=len(mono_segments),
+            raw=sum(len(d._out_lens) for d in dispatchers.values()),
+        ):
+            if mono_segments:
+                outs = fingerprint_batch(mono_segments, self.device)
+                hashes_by_ref.update(zip(mono_refs, outs))
             for d in dispatchers.values():
                 hashes_by_ref.update(d.finish())
 
@@ -158,11 +180,11 @@ class Analyzer(_BaseAnalyzer):
                 if item[0] == "cached":
                     results.append(item[1])
                     continue
-                md5, seek_to = item[1], item[8]
+                md5, seek_to, has_ending = item[:3]
                 oh, ot = self._hashes_with_timestamps(
                     hashes_by_ref[(vi, "opening")], hash_duration, None
                 )
-                if item[4] is not None:
+                if has_ending:
                     eh, et = self._hashes_with_timestamps(
                         hashes_by_ref[(vi, "ending")], hash_duration, seek_to
                     )

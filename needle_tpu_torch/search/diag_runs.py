@@ -28,6 +28,11 @@ G_TILES = 8  # diagonal tiles per mask group
 # walk went through the CUDA kernel.
 LAUNCHES = 0
 
+# Largest bucket whose two hash rows (8 * n_pad bytes) fit in the 227 KB of
+# shared memory a block can use: up to it the kernel stages whole rows,
+# above it one 512-row block at a time.
+WHOLE_ROW_MAX_NPAD = 232448 // 8
+
 # Cells (pairs x rows x diagonals) per slab of the plain version: bounds
 # its intermediates to a few hundred MB.
 _REFERENCE_CELLS = 1 << 24
@@ -122,8 +127,6 @@ def _check_operands(nv, mv, lm, thr, src, dst, n_pad, bm):
     chunk = src.shape[0] if src.dim() == 2 else -1
     if n_pad <= 0 or n_pad % D_TILE:
         raise ValueError(f"n_pad must be a positive multiple of {D_TILE}")
-    if 2 * n_pad * 4 > 232448:
-        raise ValueError(f"n_pad {n_pad} needs more than 227 KB of shared memory")
     for name, t, shape in (
         ("nv", nv, (chunk,)), ("mv", mv, (chunk,)), ("lm", lm, (chunk,)),
         ("thr", thr, (chunk,)), ("src", src, (chunk, n_pad)),
@@ -148,8 +151,9 @@ def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
     masks (default: every block). Returns (chunk, n_tiles*512) int32;
     diagonal index d is offset d - (n_pad - 1).
 
-    CUDA tensors launch the hand-written kernel (csrc/diag_runs.cu); CPU
-    tensors run `batch_counts_reference`."""
+    CUDA tensors launch the hand-written kernel (csrc/diag_runs.cu), with
+    whole-row staging up to WHOLE_ROW_MAX_NPAD and per-row-block staging
+    above; CPU tensors run `batch_counts_reference`."""
     global LAUNCHES
     if src.device.type == "cpu":
         return batch_counts_reference(nv, mv, lm, thr, src, dst, n_pad, bm)
@@ -171,6 +175,7 @@ def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
         nv.data_ptr(), mv.data_ptr(), lm.data_ptr(), thr.data_ptr(),
         bm.data_ptr(), bm.shape[1], src.data_ptr(), dst.data_ptr(),
         counts.data_ptr(), chunk, n_pad, n_out,
+        int(n_pad <= WHOLE_ROW_MAX_NPAD),
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     _build.check(err, "needle_diag_runs")

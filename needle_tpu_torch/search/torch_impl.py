@@ -4,19 +4,30 @@ For each side (openings, then endings) of a library:
 
   1. The episode hash table is uploaded once; pairs gather their rows
      from it on the device.
-  2. The count walk (search/diag_runs.py: the CUDA kernel on a card, its
+  2. Flagged (pair, diagonal) items come from one of four routes, tried in
+     needle_tpu's order (search/prefilter.py; `search.prefilter` span):
+       - direct: for 2048+ pairs dense in episode space, the block
+         correlation flags candidate diagonals and no count walk runs;
+       - band: otherwise the correlation gives each pair row-block masks,
+         pairs with an all-zero mask are dropped, and the count walk skips
+         the cleared blocks;
+       - pair: for buckets too long for a 31-bit mask, pairs whose maximum
+         correlation is under the bound are dropped;
+       - walk-all: below 2048 pairs (or with the prefilter off) every pair
+         is walked with all-ones masks.
+     The count walk (search/diag_runs.py: the CUDA kernel on a card, its
      plain version on the CPU) counts, per pair and diagonal, the run ends
-     with run >= a conservative hash-count bound l_min.
-  3. `torch.nonzero(counts > 0)` lists the flagged (pair, diagonal) items
-     in row-major order.
-  4. Extraction recomputes each flagged diagonal's match vector, takes run
+     with run >= a conservative hash-count bound l_min, and
+     `torch.nonzero(counts > 0)` lists the flagged items in row-major
+     order.
+  3. Extraction recomputes each flagged diagonal's match vector, takes run
      lengths from one cummax over run starts, and keeps the top K_CANDS
      run ends; a diagonal with more ends is rescanned exactly on the host.
-  5. The host assembles RunEntry lists in reference order
+  4. The host assembles RunEntry lists in reference order
      (search/host.py), which `Comparator.find_best_match` votes over.
 
-Every pair is walked with all-ones row-block masks, at any library size:
-that is exact (the band prefilter of needle_tpu only saves time).
+Every route is exact: the prefilter only skips pairs, blocks or diagonals
+that provably hold no run of l_min cells.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from .diag_runs import (
     popcount32,
 )
 from .host import _diag_candidates, _entries_batch, _EpisodeSide
+from .prefilter import direct_diag_items, prefilter_band_masks, prefilter_pairs
 
 # Pairs per count-walk launch.
 CHUNK = 1024
@@ -99,7 +111,7 @@ class TorchSearchEngine:
         pairs: List[Tuple[int, int]],
         is_opening: bool,
     ) -> Dict[int, List[RunEntry]]:
-        from needle_tpu.tracing import span
+        from needle_tpu.tracing import metrics, span
 
         dev = self.device
         threshold = int(comparator.hash_match_threshold)
@@ -118,14 +130,10 @@ class TorchSearchEngine:
         ]
         if not work:
             return results
-        n_work = len(work)
-        w_pidx = np.fromiter((p for p, _, _ in work), np.int64, n_work)
-        w_a = np.fromiter((a for _, a, _ in work), np.int64, n_work)
-        w_b = np.fromiter((b for _, _, b in work), np.int64, n_work)
 
         # episode table: every episode of the work list, uploaded once;
         # hashes as int32 bit patterns, lengths carry the validity
-        ep_ids = sorted(set(w_a.tolist()) | set(w_b.tolist()))
+        ep_ids = sorted({a for _, a, _ in work} | {b for _, _, b in work})
         ep_slot = {e: s for s, e in enumerate(ep_ids)}
         n_pad = _bucket(max(len(sides[e].hashes) for e in ep_ids))
         n_pad = -(-n_pad // D_TILE) * D_TILE  # kernel rows are 512-wide
@@ -139,17 +147,80 @@ class TorchSearchEngine:
         table_d = torch.from_numpy(table.view(np.int32)).to(dev)
         nv_d = torch.from_numpy(nv_tab).to(dev)
 
-        w_sa = np.fromiter((ep_slot[a] for a in w_a.tolist()), np.int32, n_work)
-        w_sb = np.fromiter((ep_slot[b] for b in w_b.tolist()), np.int32, n_work)
         # l_min per pair (cells): conservative run-length bound from the
         # minimum duration and each side's maximum hash spacing
         ceil_ep = np.ones(len(sides), np.int64)
         for e in ep_ids:
             ceil_ep[e] = -(-min_dur_ns // sides[e].max_spacing)
-        w_lm = np.minimum(
-            np.maximum(ceil_ep[w_a], ceil_ep[w_b]), _INT32_MAX
-        ).astype(np.int32)
+        pre_a = np.fromiter((a for _, a, _ in work), np.int64, len(work))
+        pre_b = np.fromiter((b for _, _, b in work), np.int64, len(work))
+        pre_lm = np.minimum(np.maximum(ceil_ep[pre_a], ceil_ep[pre_b]), _INT32_MAX)
+        pair_lm = dict(zip((p for p, _, _ in work), pre_lm.tolist()))
 
+        # the prefilter routes (module docstring); a pair the prefilter
+        # drops keeps its empty entry list
+        idx = torch.arange(n_pad, device=dev)
+        vtab_d = (idx[None, :] >= 1) & (idx[None, :] < nv_d[:, None])
+        band_masks = None
+        n_skipped = 0
+        with span("search.prefilter", work=len(work)):
+            direct_items = direct_diag_items(
+                table_d, vtab_d, work, ep_slot, pair_lm.__getitem__,
+                threshold, n_pad,
+            )
+            if direct_items is None:
+                work, band_masks, n_skipped, _ = prefilter_band_masks(
+                    table_d, vtab_d, work, ep_slot, pair_lm.__getitem__,
+                    threshold, n_pad,
+                )
+            if direct_items is None and band_masks is None:
+                work, n_skipped, _ = prefilter_pairs(
+                    table_d, vtab_d, work, ep_slot, pair_lm.__getitem__,
+                    threshold, n_pad,
+                )
+        if direct_items is not None:
+            metrics.record("search.direct_items", float(len(direct_items[0])))
+        if n_skipped:
+            metrics.record("search.prefilter_skipped", float(n_skipped))
+
+        n_work = len(work)
+        w_pidx = np.fromiter((p for p, _, _ in work), np.int64, n_work)
+        w_a = np.fromiter((a for _, a, _ in work), np.int64, n_work)
+        w_b = np.fromiter((b for _, _, b in work), np.int64, n_work)
+        w_sa = np.fromiter((ep_slot[a] for a in w_a.tolist()), np.int32, n_work)
+        w_sb = np.fromiter((ep_slot[b] for b in w_b.tolist()), np.int32, n_work)
+        w_lm = np.fromiter((pair_lm[p] for p in w_pidx.tolist()), np.int32, n_work)
+
+        if direct_items is not None:
+            item_rows, item_offs = direct_items
+        else:
+            item_rows, item_offs = self._walk(
+                w_sa, w_sb, w_lm, band_masks, table_d, nv_d, threshold,
+                n_pad, is_opening,
+            )
+
+        with span("search.extract", items=len(item_rows)):
+            cand_row, cand_i, cand_j, cand_L = self._extract_candidates(
+                item_rows, item_offs, w_sa, w_sb, w_lm, w_a, w_b,
+                sides, table_d, nv_d, threshold, n_pad,
+            )
+        with span("search.entries", cands=len(cand_row)):
+            _entries_batch(
+                results, cand_row, cand_i, cand_j, cand_L,
+                w_pidx, w_sa, w_sb, w_a, w_b, ep_ids, sides,
+                hash_durations, is_opening, min_dur_ns, n_pad, e_pad,
+            )
+        return results
+
+    def _walk(self, w_sa, w_sb, w_lm, band_masks, table_d, nv_d, threshold,
+              n_pad, is_opening):
+        """Count walk over the work rows in chunks; band_masks (rows,
+        n_groups) int32 or None for all-ones. Returns the flagged (work
+        row, diagonal offset) items as device int64 tensors."""
+        from needle_tpu.tracing import span
+
+        dev = table_d.device
+        n_work = len(w_sa)
         # chunk sizes are powers of two, padded with lanes that walk nothing
         chunk = 1
         while chunk < n_work and chunk < CHUNK:
@@ -158,7 +229,8 @@ class TorchSearchEngine:
         full = full_block_mask(n_pad)
         thr_d = torch.full((chunk,), threshold, dtype=torch.int32, device=dev)
         d_base = -(n_pad - 1)
-        rows_parts, offs_parts = [], []
+        rows_parts = [torch.zeros(0, dtype=torch.int64, device=dev)]
+        offs_parts = [torch.zeros(0, dtype=torch.int64, device=dev)]
         with span(
             "search.walk", side="opening" if is_opening else "ending",
             work=n_work, chunk=chunk, n_pad=n_pad,
@@ -174,7 +246,7 @@ class TorchSearchEngine:
                 ia[:n_b] = w_sa[c0 : c0 + n_b]
                 ib[:n_b] = w_sb[c0 : c0 + n_b]
                 lm[:n_b] = w_lm[c0 : c0 + n_b]
-                bm[:n_b] = full
+                bm[:n_b] = full if band_masks is None else band_masks[c0 : c0 + n_b]
                 ia_d = torch.from_numpy(ia).to(dev)
                 ib_d = torch.from_numpy(ib).to(dev)
                 counts = batch_counts(
@@ -185,21 +257,7 @@ class TorchSearchEngine:
                 flagged = torch.nonzero(counts > 0)  # row-major (row, d)
                 rows_parts.append(flagged[:, 0] + c0)
                 offs_parts.append(flagged[:, 1] + d_base)
-        item_rows = torch.cat(rows_parts)
-        item_offs = torch.cat(offs_parts)
-
-        with span("search.extract", items=len(item_rows)):
-            cand_row, cand_i, cand_j, cand_L = self._extract_candidates(
-                item_rows, item_offs, w_sa, w_sb, w_lm, w_a, w_b,
-                sides, table_d, nv_d, threshold, n_pad,
-            )
-        with span("search.entries", cands=len(cand_row)):
-            _entries_batch(
-                results, cand_row, cand_i, cand_j, cand_L,
-                w_pidx, w_sa, w_sb, w_a, w_b, ep_ids, sides,
-                hash_durations, is_opening, min_dur_ns, n_pad, e_pad,
-            )
-        return results
+        return torch.cat(rows_parts), torch.cat(offs_parts)
 
     def _extract_candidates(
         self, item_rows, item_offs, w_sa, w_sb, w_lm, w_a, w_b,

@@ -1,8 +1,9 @@
-"""The port on a CUDA card: the hand-written count walk kernel against its
-plain PyTorch version, and the search engine and fused ingest on the card
-against the same code on the CPU. These tests need an NVIDIA GPU and nvcc;
-elsewhere they skip. This file imports no jax, so on a machine with a card
-and without jax it runs as
+"""The port on a CUDA card: the hand-written count walk kernel (both of its
+stagings) against its plain PyTorch version, and the search engine, the
+prefilter, the fused ingest and the mono fingerprint route on the card
+against the same code on the CPU or the numpy oracle. These tests need
+an NVIDIA GPU and nvcc; elsewhere they skip. This file imports no jax, so
+on a machine with a card and without jax it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -28,12 +29,20 @@ def _t(a, device):
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
 
 
-@pytest.mark.parametrize("n_pad,chunk", [(512, 5), (2560, 64), (7168, 3)])
-def test_kernel_equals_reference(dev, n_pad, chunk):
+@pytest.mark.parametrize(
+    "n_pad,chunk,blocked",
+    [(512, 5, False), (2560, 64, False), (7168, 3, False), (2560, 64, True),
+     (32768, 2, False)],
+)
+def test_kernel_equals_reference(dev, monkeypatch, n_pad, chunk, blocked):
     """Exact on planted runs with nv/mv < n_pad, thr 0 and 10, l_min 1,
-    band masks with gaps, a padding lane, and (at 7168) more than 48 KB
-    of shared memory."""
+    band masks with gaps, a padding lane, (at 7168) more than 48 KB of
+    shared memory, and the per-row-block staging: forced at 2560, and at
+    32768, a bucket whose rows do not fit in shared memory."""
     from needle_tpu_torch.search import diag_runs as D
+
+    if blocked:
+        monkeypatch.setattr(D, "WHOLE_ROW_MAX_NPAD", 0)
 
     rng = np.random.default_rng(n_pad + chunk)
     src = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
@@ -113,3 +122,60 @@ def test_ingest_on_card_equals_oracle(dev):
         vals, _, dec, nf_b = T.ingest_classifier_values(seg, rate, ch, device="cuda")
         ref, _ = O.ingest_values_oracle(seg, len(seg), rate, ch, dec, nf_b, len(vals))
         assert np.max(np.abs(vals - ref)) < 5e-6
+
+
+def test_prefilter_on_card_equals_cpu(dev, monkeypatch):
+    """Direct items, band masks (episode tiles and per pair) and the pair
+    prefilter on the card equal the same calls on the CPU."""
+    from needle_tpu_torch.search import prefilter as P
+
+    monkeypatch.setenv("NEEDLE_TPU_SEARCH_PREFILTER", "on")
+    monkeypatch.setenv("NEEDLE_TPU_SEARCH_DIRECT", "on")
+    rng = np.random.default_rng(17)
+    n_eps, n_pad = 24, 1024
+    table = rng.integers(0, 2**32, size=(n_eps, n_pad), dtype=np.uint32)
+    shared = rng.integers(0, 2**32, size=(3, 200), dtype=np.uint32)
+    for e in range(n_eps):
+        at = 40 + (e % 11) * 60
+        table[e, at : at + 200] = shared[e % 3]
+    nv = 960 - 7 * np.arange(n_eps)
+    vtab = np.arange(n_pad)[None, :] < nv[:, None]
+    vtab[:, 0] = False
+    work = [(p, a, b) for p, (a, b) in enumerate(
+        (a, b) for a in range(n_eps) for b in range(a + 1, n_eps))]
+    slot = {e: e for e in range(n_eps)}
+
+    def run(device):
+        tab = _t(table, device)
+        vt = torch.from_numpy(vtab).to(device)
+        args = (tab, vt, work, slot, lambda p: 81, 10, n_pad)
+        rows, offs = P.direct_diag_items(*args)
+        out = [rows.cpu().numpy(), offs.cpu().numpy()]
+        for dense in ("on", "off"):
+            monkeypatch.setenv("NEEDLE_TPU_PREFILTER_DENSE", dense)
+            kept, masks, skipped, w = P.prefilter_band_masks(*args)
+            out += [kept, masks, skipped, w]
+        out.append(P.prefilter_pairs(*args))
+        return out
+
+    got, want = run(dev), run("cpu")
+    assert len(got[0]) > 0 and got[4] > 0  # items, and pairs skipped
+    for g, w in zip(got, want):
+        if isinstance(g, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+
+
+def test_fingerprint_batch_on_card_equals_numpy(dev):
+    from needle_tpu.fingerprint.numpy_impl import fingerprint_numpy
+    from needle_tpu_torch.fingerprint import torch_impl as T
+
+    rng = np.random.default_rng(23)
+    monos = [(rng.standard_normal(11025 * s) * 5000).astype(np.int16)
+             for s in (12, 30, 13)]
+    for got, m in zip(T.fingerprint_batch(monos, device="cuda"), monos):
+        np.testing.assert_array_equal(got, fingerprint_numpy(m))
+    vals, _ = T.classifier_values(monos[0], device="cuda")
+    ref, _ = T.classifier_values(monos[0], device="cpu")
+    assert np.max(np.abs(vals - ref)) < 5e-6

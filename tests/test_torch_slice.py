@@ -106,12 +106,19 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 
 def test_compressed_media_is_refused(tmp_path):
+    """Compressed media goes through the native decode, as in needle_tpu:
+    an undecodable container is refused with the same IngestError."""
+    from needle_tpu import Analyzer as JaxAnalyzer
+    from needle_tpu.ingest import IngestError
     from needle_tpu_torch import Analyzer
 
     p = tmp_path / "ep.mkv"
     p.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(16384))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(IngestError, match="open failed") as ours:
         Analyzer([p], device="cpu").run(0.3, persist=False)
+    with pytest.raises(IngestError) as ref:
+        JaxAnalyzer([p], backend="jax").run(0.3, persist=False)
+    assert str(ours.value) == str(ref.value)
 
 
 def test_library_api(tmp_path):
