@@ -22,10 +22,19 @@ numpy search engine. Then the library path:
 - mono route: the season at 11025 Hz mono through the pre-decoded mono
   fingerprint path and the search.
 
-Every phase raises on failure: the script then exits nonzero and prints no
-result. On success the line before the last is a JSON object describing
-each kernel (launches on the main path, error against the plain version,
-times of both) and the last line is
+The script imports nothing of jax and nothing of needle_tpu (the JAX
+package): its references are the port's own (NumpySearchEngine,
+fingerprint_numpy, the canonical ingest oracle), and it fails if either
+package was loaded by its end. Every phase raises on failure: the script
+then exits nonzero and prints no result. The count walk's phases print,
+per timed shape, the cells the kernel walked (valid (i, j) cells of the
+real pairs on unmasked row blocks), cells/s, and the least time the card
+could take for them: the larger of 64 int8 operations per cell (a 32-deep
++/-1 dot product) at 1,979 TOP/s and the bytes the call moves (hash rows
+in, counts out) at 3.35 TB/s, the H100 SXM's published peaks. On success
+the line before the last is a JSON object describing each kernel
+(launches on the main path, error against the plain version, times of
+both, the bound) and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
@@ -64,6 +73,11 @@ LIB_EPISODES, LIB_HASHES, LIB_SHOWS, LIB_RUN, LIB_SEED = 1000, 2400, 20, 360, 11
 BAND_EPISODES = 300
 HASH_STEP_NS = 247619033
 TS0_NS = 2600090703
+# the count walk's bound: one cell is a 32-deep +/-1 dot product (64 int8
+# operations) and the H100 SXM's published int8 rate and memory rate
+OPS_PER_CELL = 64
+PEAK_INT8_OPS = 1.979e15
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -96,14 +110,106 @@ def _median_ms(torch, fn, reps):
     return sorted(times)[len(times) // 2]
 
 
+def walked_cells(np, nv, mv, bm, n_pad, n_pairs):
+    """Cells the count walk visits for the first n_pairs lanes: valid
+    (i, j) cells (1 <= i < nv, 1 <= j < mv) on the row blocks their mask
+    group allows (bit min((i + 1) // 512, 31) of bm[p, group])."""
+    from needle_tpu_torch.search import diag_runs as D
+
+    span = D.G_TILES * D.D_TILE  # diagonals per mask group
+    i = np.arange(n_pad, dtype=np.int64)
+    shift = np.minimum((i + 1) // D.D_TILE, 31)
+    total = 0
+    for p in range(n_pairs):
+        rows = (i >= 1) & (i < nv[p])
+        for g in range(bm.shape[1]):
+            o_lo = g * span - (n_pad - 1)
+            lo = np.maximum(1, i + o_lo)
+            hi = np.minimum(int(mv[p]) - 1, i + o_lo + span - 1)
+            allowed = rows & (((np.int64(bm[p, g]) >> shift) & 1) == 1)
+            total += int(np.maximum(0, hi - lo + 1)[allowed].sum())
+    return total
+
+
+def walk_bytes(chunk, n_pad, n_out):
+    """Bytes one count walk launch must move: both hash rows of every lane
+    in, the int32 counts out."""
+    return chunk * n_pad * 8 + chunk * n_out * 4
+
+
+def log_bound(label, launches, ms, cells, moved):
+    """Log cells/s and the bound of `launches` count walk launches that
+    took `ms` of kernel time; return (bound ms, "operations" or "bytes"):
+    the larger of the cells' int8 operations at the card's peak and the
+    moved bytes at its memory rate."""
+    ops_ms = OPS_PER_CELL * cells / PEAK_INT8_OPS * 1e3
+    bytes_ms = moved / PEAK_BYTES * 1e3
+    bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                          else (bytes_ms, "bytes"))
+    log(f"count walk {label}: {launches} launch(es), kernel {ms:.4f} ms, "
+        f"{cells} cells walked, {cells / (ms * 1e-3):.4g} cells/s; bound "
+        f"{bound_ms:.4f} ms (set by {bound_by}), kernel at "
+        f"{bound_ms / ms:.4f} of it")
+    return bound_ms, bound_by
+
+
+class WalkTimer:
+    """Times every count walk launch of the engine with CUDA events around
+    it (no synchronisation inside the run) and adds up the bytes each
+    launch moves. Use as a context manager around a search."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = []
+        self.moved = 0
+
+    def __enter__(self):
+        from needle_tpu_torch.search import torch_impl as T
+
+        self.real = T.batch_counts
+        torch = self.torch
+
+        def counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(nv, mv, lm, thr, src, dst, n_pad, bm=bm)
+            end.record()
+            self.events.append((start, end))
+            self.moved += walk_bytes(src.shape[0], n_pad, out.shape[1])
+            return out
+
+        T.batch_counts = counts
+        return self
+
+    def __exit__(self, *exc):
+        from needle_tpu_torch.search import torch_impl as T
+
+        T.batch_counts = self.real
+
+    def log(self, label, cells):
+        self.torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        return log_bound(label, len(self.events), ms, cells, self.moved)
+
+
+def all_pairs_cells(lengths):
+    """Cells a walk with all-ones masks visits over every pair of episodes
+    with these side lengths: sum over pairs of (n_a - 1) * (n_b - 1)."""
+    m = [max(0, n - 1) for n in lengths]
+    return (sum(m) ** 2 - sum(x * x for x in m)) // 2
+
+
 def kernel_phase(torch, np):
     """The count walk kernel against batch_counts_reference on the card,
-    exactly, at the season's shapes; median times of both."""
+    exactly, at the season's shapes; median times of both, and the
+    kernel's bound."""
     from needle_tpu_torch.search import diag_runs as D
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda", 0)
-    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}}
+    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}, "cells": {},
+              "bound_ms": {}, "bound_by": {}}
     for n_pad in N_PADS:
         src = rng.integers(0, 2**32, size=(LANES, n_pad), dtype=np.uint32)
         dst = rng.integers(0, 2**32, size=(LANES, n_pad), dtype=np.uint32)
@@ -154,15 +260,21 @@ def kernel_phase(torch, np):
             f"== reference on {flagged} flagged diagonals; kernel {kern} ms, "
             f"plain {plain} ms (median per call, two rounds)"
         )
+        cells = walked_cells(np, nv, mv, bm, n_pad, PAIRS)
+        result["cells"][n_pad] = cells
+        result["bound_ms"][n_pad], result["bound_by"][n_pad] = log_bound(
+            f"{LANES} x {n_pad}", 1, result["ms"][n_pad], cells,
+            walk_bytes(LANES, n_pad, int(got.shape[1])),
+        )
     return result
 
 
 def season_phase(torch, np, workdir: Path):
     """Analyze + search the bench season through the port's CLI."""
-    from needle_tpu.testing import make_synthetic_season
-    from needle_tpu.tracing import metrics
     from needle_tpu_torch.cli import main
     from needle_tpu_torch.search import diag_runs
+    from needle_tpu_torch.testing import make_synthetic_season
+    from needle_tpu_torch.tracing import metrics
 
     t0 = time.perf_counter()
     paths, op_truth, end_truth = make_synthetic_season(
@@ -183,9 +295,10 @@ def season_phase(torch, np, workdir: Path):
     torch.cuda.synchronize()
     analyze_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    if main(["search", "--include-endings", "--write-skip-files",
-             "--no-display", str(workdir)]) != 0:
-        raise AssertionError("search failed")
+    with WalkTimer(torch) as timer:
+        if main(["search", "--include-endings", "--write-skip-files",
+                 "--no-display", str(workdir)]) != 0:
+            raise AssertionError("search failed")
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     launches = diag_runs.LAUNCHES
@@ -195,6 +308,12 @@ def season_phase(torch, np, workdir: Path):
     log(f"stage seconds: {json.dumps(stages)}")
     if launches <= 0:
         raise AssertionError("the search never launched the count walk kernel")
+    from needle_tpu_torch.data import FrameHashes
+
+    fhs = [FrameHashes.from_path(p.with_suffix(".needle.dat")) for p in paths]
+    cells = (all_pairs_cells([len(f.opening_hashes) for f in fhs])
+             + all_pairs_cells([len(f.ending_hashes) for f in fhs]))
+    timer.log("of the season search (openings and endings, walk-all)", cells)
 
     ok = 0
     for p, (op_s, op_e), en in zip(paths, op_truth, end_truth):
@@ -218,8 +337,8 @@ def season_phase(torch, np, workdir: Path):
 def hash_phase(torch, np, paths):
     """Raw window hashes on the card == canonical oracle; the .needle.dat
     hashes are their every step_by-th; the classifier-value error."""
-    from needle_tpu.data import FrameHashes
     from needle_tpu_torch.analyzer import Analyzer
+    from needle_tpu_torch.data import FrameHashes
     from needle_tpu_torch.fingerprint.ingest_oracle import (
         ingest_hashes_full_oracle,
         ingest_values_oracle,
@@ -270,16 +389,16 @@ def hash_phase(torch, np, paths):
 
 
 def engine_phase(torch, np, paths):
-    """TorchSearchEngine on the card == NumpySearchEngine on episodes 1-4:
-    RunEntry lists (heap order included) and SearchResults."""
-    from needle_tpu.comparator import Comparator as NumpyComparator
-    from needle_tpu.data import FrameHashes
+    """TorchSearchEngine on the card == the port's NumpySearchEngine on
+    episodes 1-4: RunEntry lists (heap order included) and
+    SearchResults."""
     from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.data import FrameHashes
 
     sub = paths[:4]
     fhs = [FrameHashes.from_path(p.with_suffix(".needle.dat")) for p in sub]
     ours = Comparator(sub, device="cuda").with_include_endings(True)
-    ref = NumpyComparator(sub, engine="numpy").with_include_endings(True)
+    ref = Comparator(sub, engine="numpy").with_include_endings(True)
     pairs = ours.pair_order(len(sub))
 
     def entries(cmp):
@@ -330,9 +449,9 @@ def long_bucket_phase(torch, np):
     a full-mask lane, a lane with a gapped mask, a padding lane. Then a
     2-episode search whose sides (30,000 hashes) bucket to 32,768, on the
     count walk's per-row-block staging."""
-    from needle_tpu.data import FrameHashes
-    from needle_tpu.duration import Duration
     from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.data import FrameHashes
+    from needle_tpu_torch.duration import Duration
     from needle_tpu_torch.search import diag_runs as D
 
     n_pad = LONG_N_PAD
@@ -366,6 +485,9 @@ def long_bucket_phase(torch, np):
     log(f"count walk n_pad {n_pad} (per-row-block staging), 3 lanes: kernel "
         f"== reference on {flagged} flagged diagonals; kernel {kern:.3f} ms, "
         f"plain {plain:.1f} ms")
+    cells = walked_cells(np, nv, mv, bm, n_pad, 2)  # lane 2 is padding
+    bound_ms, bound_by = log_bound(f"3 x {n_pad}", 1, kern, cells,
+                                   walk_bytes(3, n_pad, int(got.shape[1])))
 
     n = LONG_HASHES
     shared = rng.integers(0, 2**32, size=400, dtype=np.uint32)
@@ -392,14 +514,15 @@ def long_bucket_phase(torch, np):
         raise AssertionError(f"long-bucket search found {len(res)} of 2 runs")
     log(f"long-bucket search: 2 x {n} hashes (n_pad {n_pad}), planted run "
         f"found in both, {launches} kernel launches")
-    return {"ms": kern, "plain_ms": plain, "max_abs_err": err}
+    return {"ms": kern, "plain_ms": plain, "max_abs_err": err, "cells": cells,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _mixed_library(np, n_eps):
     """bench.py's search_only_config(n_eps, n_shows=20) library, in numpy:
     (FrameHashes list, planted opening start and end in seconds)."""
-    from needle_tpu.data import FrameHashes
-    from needle_tpu.duration import Duration
+    from needle_tpu_torch.data import FrameHashes
+    from needle_tpu_torch.duration import Duration
 
     rng = np.random.default_rng(LIB_SEED)
     shareds = [rng.integers(0, 2**32, size=LIB_RUN, dtype=np.uint32)
@@ -419,12 +542,12 @@ def _mixed_library(np, n_eps):
 
 def _library_search(torch, fhs, env):
     """One search of `fhs` on the card with `env` set: (entries per pair,
-    SearchResults, wall s, search.prefilter s, count walk launches,
-    direct items, walk calls that got band masks)."""
-    from needle_tpu.tracing import metrics
+    SearchResults, wall s, search.prefilter s, count walk launches and
+    their timer, direct items, walk calls that got band masks)."""
     from needle_tpu_torch.comparator import Comparator
     from needle_tpu_torch.search import diag_runs as D
     from needle_tpu_torch.search import torch_impl as T
+    from needle_tpu_torch.tracing import metrics
 
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -443,7 +566,8 @@ def _library_search(torch, fhs, env):
         D.LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        infos = cmp.search_pair_infos(fhs, pairs)
+        with WalkTimer(torch) as timer:
+            infos = cmp.search_pair_infos(fhs, pairs)
         data = [(i, j, info) for (i, j), info in zip(pairs, infos)
                 if not info.is_empty()]
         res = cmp.finalize_results(data, False, False, False)
@@ -462,7 +586,7 @@ def _library_search(torch, fhs, env):
     return {
         "entries": entries, "results": results, "wall": wall,
         "prefilter_s": snap.get("search.prefilter", (0.0, 0))[0],
-        "launches": D.LAUNCHES,
+        "launches": D.LAUNCHES, "timer": timer,
         "direct_items": snap.get("search.direct_items", (0.0, 0))[0],
         "skipped": snap.get("search.prefilter_skipped", (0.0, 0))[0],
         "masked_walks": sum(masked), "walks": len(masked),
@@ -494,6 +618,8 @@ def library_phase(torch, np):
         raise AssertionError("mixed1000's auto route was not direct flagging")
     if walk["launches"] <= 0 or walk["direct_items"] or walk["masked_walks"]:
         raise AssertionError("walk-all did not walk every pair unmasked")
+    walk["timer"].log("of mixed1000 walk-all",
+                      all_pairs_cells([len(f.opening_hashes) for f in fhs]))
     if auto["entries"] != walk["entries"] or auto["results"] != walk["results"]:
         raise AssertionError("mixed1000: direct route != walk-all")
     if len(auto["results"]) != LIB_EPISODES:
@@ -530,15 +656,15 @@ def mono_phase(torch, np, workdir: Path):
     (no FFmpeg), windowed as the Analyzer windows it, through the
     pre-decoded mono route on the card: episodes 1-2 bit-exact against
     fingerprint_numpy, and the search at accuracy 1.0."""
-    from needle_tpu import ingest
-    from needle_tpu.constants import DEFAULT_HASH_DURATION
-    from needle_tpu.data import FrameHashes
-    from needle_tpu.duration import Duration
-    from needle_tpu.fingerprint.numpy_impl import fingerprint_numpy
-    from needle_tpu.testing import make_synthetic_season
+    from needle_tpu_torch import ingest
     from needle_tpu_torch.analyzer import Analyzer
     from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.constants import DEFAULT_HASH_DURATION
+    from needle_tpu_torch.data import FrameHashes
+    from needle_tpu_torch.duration import Duration
+    from needle_tpu_torch.fingerprint.numpy_impl import fingerprint_numpy
     from needle_tpu_torch.fingerprint.torch_impl import fingerprint_batch
+    from needle_tpu_torch.testing import make_synthetic_season
 
     paths, op_truth, end_truth = make_synthetic_season(
         workdir, num_episodes=NUM_EPISODES, episode_secs=EPISODE_SECS,
@@ -618,8 +744,13 @@ def main() -> int:
         mono_phase(torch, np, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    reference = sorted(m for m in sys.modules
+                       if m == "needle_tpu" or m.startswith("needle_tpu."))
+    if reference:
+        raise AssertionError(f"needle_tpu modules were imported: {reference}")
 
     log(smi_line)
+    n_pad = N_PADS[0]
     print(json.dumps({"kernels": [{
         "name": "diag_runs",
         "route": "cuda",
@@ -627,8 +758,13 @@ def main() -> int:
         "replaces": "needle_tpu/search/pallas_impl.py:56",
         "launches": launches,
         "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"][N_PADS[0]],
-        "plain_ms": kernel["plain_ms"][N_PADS[0]],
+        "ms": kernel["ms"][n_pad],
+        "plain_ms": kernel["plain_ms"][n_pad],
+        "bound_ms": kernel["bound_ms"][n_pad],
+        "bound_by": kernel["bound_by"][n_pad],
+        # no PyTorch call computes per-diagonal run counts
+        "library_ms": None,
+        "cells": kernel["cells"][n_pad],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

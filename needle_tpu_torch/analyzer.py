@@ -1,43 +1,183 @@
-"""Analyzer on PyTorch: needle_tpu's Analyzer with the torch fingerprint
-paths.
+"""Analyzer on PyTorch: per-video decode -> fingerprint -> FrameHashes.
 
-Raw-PCM sources (WAV, .pcm, .raw) are read as memmaps at their own rate
-and go through `fingerprint.torch_impl.IngestDispatcher` on the chosen
-device: decimation, downmix, resampling and fingerprinting all run there.
-Compressed media (.mkv, .mp4, ...) is decoded on the host by the base
-class's native FFmpeg decode to 11025 Hz stereo, downmixed to mono, and
-fingerprinted by `fingerprint.torch_impl.fingerprint_batch` on the device.
+Mirrors needle/src/audio/analyzer.rs, as needle_tpu/analyzer.py does; this
+is the port's own copy of it, with the fingerprint math on a torch device
+('cuda' or 'cpu'):
+
+  * Raw-PCM sources (WAV, .pcm, .raw) are read as memmaps at their own
+    rate and go through `fingerprint.torch_impl.IngestDispatcher`:
+    decimation, downmix, resampling and fingerprinting all run on the
+    device.
+  * Compressed media (.mkv, .mp4, ...) is decoded on the host by the
+    native FFmpeg layer (`ingest`) to 11025 Hz stereo, downmixed to mono,
+    and fingerprinted by `fingerprint.torch_impl.fingerprint_batch` on the
+    device.
+
 On both routes borderline hashes are rescanned exactly on the host.
-Timestamps, caching and `.needle.dat` output are the base class's,
-unchanged.
+
+Timestamp math replicates the reference exactly (analyzer.rs:286-318):
+  delay = 28666 samples, item duration = 1365 samples (chromaprint TEST2),
+  converted to Durations at full precision; ts_i = delay + item.mul_f32(i),
+  stepping raw hash indices by hash_duration.as_millis()/item.as_millis();
+  ending hashes additionally get seek_to added, where
+  seek_to = stream_duration.mul_f32(1 - ending_search_percentage).
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
+from fractions import Fraction
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from needle_tpu import ingest
-from needle_tpu.analyzer import Analyzer as _BaseAnalyzer
-from needle_tpu.data import FrameHashes, frame_hash_data_path
-from needle_tpu.duration import Duration
-from needle_tpu.errors import AnalyzerMissingPaths
-from needle_tpu.fingerprint.numpy_impl import downmix_stereo_i16
-from needle_tpu.util import compute_header_md5sum
-
+from . import constants, ingest
+from .data import FrameHashes, frame_hash_data_path
+from .duration import Duration
+from .errors import AnalyzerMissingPaths
+from .fingerprint.constants import DELAY_SAMPLES, ITEM_DURATION_SAMPLES, SAMPLE_RATE
+from .fingerprint.numpy_impl import downmix_stereo_i16
 from .fingerprint.torch_impl import IngestDispatcher, fingerprint_batch
+from .util import compute_header_md5sum
+
+# chromaprint-rust converts chromaprint's delay/item counters to Durations,
+# and which conversion the crate uses cannot be confirmed offline, so both
+# are implemented, switchable with NEEDLE_TPU_TS_MODE (as in needle_tpu):
+#
+#   * "samples" (default): Duration from the sample counters at full f64
+#     precision — delay = 28666/11025 s, item = 1365/11025 s.
+#   * "ms": Duration::from_millis of the C API's millisecond accessors,
+#     which truncate (samples * 1000 / 11025 in integer math): delay =
+#     2600 ms, item = 123 ms.
+#
+# step_by (analyzer.rs:293-296) divides truncated as_millis() values and is
+# IDENTICAL in both modes (123 ms). `.needle.dat` caches are keyed by
+# header MD5 only (reference semantics), so files written under one mode
+# are NOT invalidated by switching modes — re-analyze with force=True /
+# --force after changing NEEDLE_TPU_TS_MODE.
+_TS_MODES = ("samples", "ms")
 
 
-class Analyzer(_BaseAnalyzer):
-    """Analyzes episodes into FrameHashes on a torch device ('cuda' or
-    'cpu')."""
+def _ts_mode() -> str:
+    v = os.environ.get("NEEDLE_TPU_TS_MODE", "samples")
+    if v not in _TS_MODES:
+        raise ValueError(
+            f"NEEDLE_TPU_TS_MODE must be one of {_TS_MODES}, got {v!r}"
+        )
+    return v
+
+
+def chromaprint_delay_item() -> Tuple[Duration, Duration]:
+    """(hash delay, item duration) under the active NEEDLE_TPU_TS_MODE."""
+    if _ts_mode() == "ms":
+        return (
+            Duration.from_millis(DELAY_SAMPLES * 1000 // SAMPLE_RATE),
+            Duration.from_millis(ITEM_DURATION_SAMPLES * 1000 // SAMPLE_RATE),
+        )
+    return CHROMAPRINT_DELAY, CHROMAPRINT_ITEM_DURATION
+
+
+# Module-level constants give the default ("samples") values; timestamp
+# assembly goes through chromaprint_delay_item() so the mode is switchable.
+CHROMAPRINT_DELAY = Duration.from_secs_f64(DELAY_SAMPLES / SAMPLE_RATE)
+CHROMAPRINT_ITEM_DURATION = Duration.from_secs_f64(ITEM_DURATION_SAMPLES / SAMPLE_RATE)
+
+
+class Analyzer:
+    """Analyzes videos into FrameHashes (analyzer.rs:85-455) on a torch
+    device ('cuda' or 'cpu')."""
 
     def __init__(self, videos: Sequence = (), device: str = "cuda"):
-        super().__init__(videos, backend="torch")
+        self.videos: List[Path] = [Path(v) for v in videos]
+        self.opening_search_percentage: float = (
+            constants.DEFAULT_OPENING_SEARCH_PERCENTAGE
+        )
+        self.ending_search_percentage: float = (
+            constants.DEFAULT_ENDING_SEARCH_PERCENTAGE
+        )
+        self.include_endings: bool = False
+        self.threaded_decoding: bool = False
+        self.force: bool = False
         self.device = device
+
+    # -- builder API (analyzer.rs:108-151) ------------------------------------
+
+    @classmethod
+    def from_files(
+        cls, videos: Sequence, threaded_decoding: bool = False, force: bool = False, **kw
+    ) -> "Analyzer":
+        a = cls(videos, **kw)
+        a.threaded_decoding = threaded_decoding
+        a.force = force
+        return a
+
+    def with_opening_search_percentage(self, v: float) -> "Analyzer":
+        self.opening_search_percentage = float(v)
+        return self
+
+    def with_ending_search_percentage(self, v: float) -> "Analyzer":
+        self.ending_search_percentage = float(v)
+        return self
+
+    def with_include_endings(self, v: bool) -> "Analyzer":
+        self.include_endings = bool(v)
+        return self
+
+    def with_threaded_decoding(self, v: bool) -> "Analyzer":
+        self.threaded_decoding = bool(v)
+        return self
+
+    def with_force(self, v: bool) -> "Analyzer":
+        self.force = bool(v)
+        return self
+
+    # -- host decode of compressed media ---------------------------------------
+
+    def _decode_segments(
+        self, path: Path
+    ) -> Tuple[np.ndarray, Optional[np.ndarray], Duration, Optional[Duration]]:
+        """Decode the opening window and (optionally) the ending window of
+        a compressed media file.
+
+        Returns (opening_pcm, ending_pcm, stream_duration, ending_seek_to),
+        with PCM as S16 interleaved stereo @ 11025 Hz.
+        """
+        # First probe duration (cheap open), mirroring analyzer.rs:362-374.
+        duration_secs = ingest.stream_duration_secs(path)
+        return self._decode_segments_av(path, duration_secs)
+
+    def _decode_segments_av(self, path: Path, duration_secs: float):
+        stream_duration = Duration.from_secs_f64(duration_secs)
+
+        opening_duration = stream_duration.mul_f32(
+            np.float32(self.opening_search_percentage)
+        )
+        opening_pcm, _ = ingest.decode_audio(
+            path,
+            seek_to_secs=None,
+            duration_limit_secs=opening_duration.as_secs_f64(),
+            sample_rate=SAMPLE_RATE,
+            threaded=self.threaded_decoding,
+        )
+        ending_pcm, seek_to = None, None
+        if self.include_endings:
+            seek_to = stream_duration.mul_f32(
+                np.float32(1.0) - np.float32(self.ending_search_percentage)
+            )
+            # The reference seeks using ms-truncated timestamps
+            # (audio/util.rs:36-38).
+            ending_pcm, _ = ingest.decode_audio(
+                path,
+                seek_to_secs=seek_to.as_millis() / 1000.0,
+                duration_limit_secs=None,
+                sample_rate=SAMPLE_RATE,
+                threaded=self.threaded_decoding,
+            )
+        return opening_pcm, ending_pcm, stream_duration, seek_to
+
+    # -- device ingest (raw PCM -> device decimate/resample/fingerprint) -------
 
     def _use_device_ingest(self, path) -> bool:
         return ingest.is_pcm_file(path)
@@ -51,7 +191,7 @@ class Analyzer(_BaseAnalyzer):
         ending_seg, ending_n_valid, rate, channels, seek_to). The opening
         segment is the whole memmap with n_valid = the window length; the
         ingest zeroes what lies past it."""
-        from needle_tpu.tracing import span
+        from .tracing import span
 
         with span("ingest.read_raw"):
             samples, rate, channels, duration_secs = ingest.read_pcm_mmap(path)
@@ -72,6 +212,57 @@ class Analyzer(_BaseAnalyzer):
         return (samples, n_open, ending_seg, ending_nv, rate, channels,
                 seek_to)
 
+    # -- hash assembly (analyzer.rs:286-318) -----------------------------------
+
+    # Timestamp tables are identical across episodes (ts_i depends only on the
+    # raw index i); cache them per (step_by, mode).
+    _ts_table_cache: dict = {}
+
+    @classmethod
+    def _ts_table(cls, step_by: int, count: int) -> np.ndarray:
+        """int64 nanos of delay + item.mul_f32(i) for i = 0, step, 2*step..."""
+        delay, item = chromaprint_delay_item()
+        key = (step_by, _ts_mode())
+        cached = cls._ts_table_cache.get(key)
+        if cached is None or len(cached) < count:
+            want = max(count, 2 * len(cached) if cached is not None else count, 1024)
+            idx = np.arange(0, want * step_by, step_by, dtype=np.int64)
+            item_f32 = item.as_secs_f32()
+            prods = np.float32(idx.astype(np.float32) * item_f32)
+            # Duration::from_secs_f32: exact f32 value -> nanos, half-even,
+            # in exact Fraction math
+            cached = np.array(
+                [round(Fraction(float(p)) * 10**9) for p in prods], dtype=np.int64
+            )
+            cached += delay.total_nanos()
+            cls._ts_table_cache[key] = cached
+        return cached[:count]
+
+    @staticmethod
+    def _hashes_with_timestamps(
+        raw_hashes: np.ndarray,
+        hash_duration: Optional[Duration],
+        seek_to: Optional[Duration],
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Select every step_by-th raw hash and attach reference-exact
+        timestamps. Returns (uint32 hashes, int64 ts_nanos)."""
+        if hash_duration is not None:
+            item = chromaprint_delay_item()[1]
+            step_by = hash_duration.as_millis() // item.as_millis()
+            if step_by == 0:
+                # Rust Iterator::step_by(0) panics.
+                raise ValueError("hash_duration shorter than chromaprint item duration")
+        else:
+            step_by = 1
+        idx = np.arange(0, len(raw_hashes), step_by, dtype=np.int64)
+        hashes = np.asarray(raw_hashes, dtype=np.uint32)[idx]
+        ts = Analyzer._ts_table(step_by, len(idx)).copy()
+        if seek_to is not None:
+            ts += seek_to.total_nanos()
+        return hashes, ts
+
+    # -- runs --------------------------------------------------------------------
+
     def run_single(
         self, path, hash_duration: Duration, persist: bool
     ) -> FrameHashes:
@@ -91,6 +282,27 @@ class Analyzer(_BaseAnalyzer):
             hash_duration = Duration.from_secs_f32(np.float32(hash_duration))
         return self._run_batched(hash_duration, persist, threading)
 
+    # Episodes per streaming wave: bounds host PCM memory for 1000+ episode
+    # libraries.
+    STREAM_BLOCK = 64
+
+    def _run_batched(
+        self, hash_duration: Duration, persist: bool, threading: bool
+    ) -> List[FrameHashes]:
+        """Batched analyze in streaming waves of STREAM_BLOCK episodes."""
+        videos = [Path(p) for p in self.videos]
+        results: List[FrameHashes] = []
+        for w0 in range(0, len(videos), self.STREAM_BLOCK):
+            results.extend(
+                self._run_batched_block(
+                    videos[w0 : w0 + self.STREAM_BLOCK],
+                    hash_duration,
+                    persist,
+                    threading,
+                )
+            )
+        return results
+
     def _run_batched_block(
         self, videos: List[Path], hash_duration: Duration, persist: bool,
         threading: bool,
@@ -98,7 +310,7 @@ class Analyzer(_BaseAnalyzer):
         """One wave: threaded reads and decodes -> lane-chunk dispatches as
         they fill -> assembly/persist. Cache semantics identical to
         needle_tpu's."""
-        from needle_tpu.tracing import span
+        from .tracing import span
 
         def prepare(path):
             """("cached", FrameHashes) or (md5, seek_to, has_ending, "raw",
@@ -153,8 +365,6 @@ class Analyzer(_BaseAnalyzer):
 
         with span("analyze.decode", videos=len(videos)):
             if threading and len(videos) > 1:
-                import os
-
                 workers = max(1, min(4, os.cpu_count() or 4))
                 with ThreadPoolExecutor(max_workers=workers) as pool:
                     for vi, item in enumerate(pool.map(prepare, videos)):

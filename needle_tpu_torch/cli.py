@@ -1,9 +1,11 @@
 """needle CLI on PyTorch: info / analyze / search.
 
-The argument surface is needle_tpu's (needle_tpu/cli.py, itself the
-reference's), plus `--device {cuda,cpu}` on analyze and search (default
-cuda). The JAX CLI's `--backend` and `--engine` select JAX-side
-implementations and are refused here unless left at their default.
+Mirrors needle/src/main.rs (clap v3 derive), as needle_tpu/cli.py does:
+identical subcommands, flag names, defaults, validation messages and
+output text, plus `--device {cuda,cpu}` on analyze and search (default
+cuda). needle_tpu's `--backend` and `--engine` select JAX-side
+implementations; they are parsed, and refused unless left at their
+default.
 
     python -m needle_tpu_torch.cli analyze --include-endings SEASON_DIR
     python -m needle_tpu_torch.cli search --include-endings SEASON_DIR
@@ -13,31 +15,188 @@ from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 import numpy as np
 
-from needle_tpu.cli import (
-    _build_parser as _base_parser,
-    _error_exit,
-    _find_videos,
-    _runtime_error_exit,
-)
-from needle_tpu.duration import Duration
-from needle_tpu.errors import Error
-from needle_tpu.ingest import IngestError
-from needle_tpu.util import ffmpeg_version_string
-
+from . import constants
 from .analyzer import Analyzer
 from .comparator import Comparator
+from .duration import Duration
+from .errors import Error
+from .ingest import IngestError
+from .util import ffmpeg_version_string, find_video_files
 
 
 def _build_parser() -> argparse.ArgumentParser:
-    p = _base_parser()
-    sub = next(
-        a for a in p._actions if isinstance(a, argparse._SubParsersAction)
+    p = argparse.ArgumentParser(
+        prog="needle",
+        description=(
+            "needle detects openings/intros and endings/credits across video "
+            "files (PyTorch/CUDA implementation)."
+        ),
     )
-    for name in ("analyze", "search"):
-        sub.choices[name].add_argument(
+    def add_global_flags(parser, suppress: bool):
+        # main.rs:178-193: --no-threading/--file-headers-only are
+        # clap global=true flags — accepted before OR after the
+        # subcommand. Subparser copies default to SUPPRESS so a
+        # root-level occurrence isn't clobbered by the subparser.
+        kw = {"default": argparse.SUPPRESS} if suppress else {}
+        parser.add_argument(
+            "--no-threading",
+            action="store_true",
+            help="Disable multi-threading.",
+            **kw,
+        )
+        parser.add_argument(
+            "--file-headers-only",
+            action="store_true",
+            help=(
+                "By default, video files are validated using FFmpeg, which "
+                "is extremely accurate. Setting this flag will switch to "
+                "just checking file headers."
+            ),
+            **kw,
+        )
+
+    add_global_flags(p, suppress=False)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pi = sub.add_parser(
+        "info", help="Displays info about needle and its dependencies."
+    )
+    add_global_flags(pi, suppress=True)
+
+    pa = sub.add_parser(
+        "analyze",
+        help=(
+            "Decode one or more video files into a list of frame hashes. The "
+            "frame hash data is written to disk alongside each analyzed video "
+            "file, and is used by the 'search' command."
+        ),
+    )
+    add_global_flags(pa, suppress=True)
+    pa.add_argument("paths", nargs="+", type=Path, help="Video files or directories to analyze.")
+    pa.add_argument(
+        # main.rs:31: #[clap(short, long, ...)] — the only short alias
+        # in the reference CLI
+        "-m",
+        "--mode",
+        choices=["audio"],
+        default="audio",
+        help="Analysis mode.",
+    )
+    pa.add_argument(
+        "--opening-search-percentage",
+        type=float,
+        default=constants.DEFAULT_OPENING_SEARCH_PERCENTAGE,
+        help="Specifies which portion of the start of the video the opening should be in.",
+    )
+    pa.add_argument(
+        "--ending-search-percentage",
+        type=float,
+        default=constants.DEFAULT_ENDING_SEARCH_PERCENTAGE,
+        help="Specifies which portion of the end of the video the ending should be in.",
+    )
+    pa.add_argument(
+        "--hash-duration",
+        type=float,
+        default=constants.DEFAULT_HASH_DURATION,
+        help="Amount of time (in seconds) that each hash represents.",
+    )
+    pa.add_argument(
+        "--include-endings",
+        action="store_true",
+        help="If set, needle will also consider endings during the analysis.",
+    )
+    pa.add_argument(
+        "--threaded-decoding",
+        action="store_true",
+        help="Enable multi-threaded decoding in FFmpeg.",
+    )
+    pa.add_argument(
+        "--force",
+        action="store_true",
+        help="Re-analyze all videos and ignore any existing hash data on disk.",
+    )
+    pa.add_argument(
+        "--backend",
+        choices=["auto", "jax", "numpy", "chromaprint"],
+        default="auto",
+        help="Fingerprint compute backend (needle-tpu extension).",
+    )
+
+    ps = sub.add_parser(
+        "search",
+        help=(
+            "Search for openings and endings among a group of videos using "
+            "frame hash data."
+        ),
+    )
+    add_global_flags(ps, suppress=True)
+    ps.add_argument(
+        "paths", nargs="+", type=Path, help="Video files or directories to search."
+    )
+    ps.add_argument(
+        "--hash-match-threshold",
+        type=int,
+        default=constants.DEFAULT_HASH_MATCH_THRESHOLD,
+        help="Threshold to use when comparing hashes. The range is 0 (exact match) to 32 (no match).",
+    )
+    ps.add_argument(
+        "--min-opening-duration",
+        type=int,
+        default=constants.DEFAULT_MIN_OPENING_DURATION,
+        help="Minimum opening duration, in seconds.",
+    )
+    ps.add_argument(
+        "--min-ending-duration",
+        type=int,
+        default=constants.DEFAULT_MIN_ENDING_DURATION,
+        help="Minimum ending duration, in seconds.",
+    )
+    ps.add_argument(
+        "--time-padding",
+        type=float,
+        default=constants.DEFAULT_OPENING_AND_ENDING_TIME_PADDING,
+        help=(
+            "Amount of time (in seconds) to add to detected opening/ending "
+            "start time and deduct from detected opening/ending end time."
+        ),
+    )
+    ps.add_argument(
+        "--analyze",
+        action="store_true",
+        help="Run the analysis step in-place instead of looking for pre-computed hash data.",
+    )
+    ps.add_argument(
+        "--use-skip-files",
+        action="store_true",
+        help="Check skip files on disk during the search.",
+    )
+    ps.add_argument(
+        "--write-skip-files",
+        action="store_true",
+        help="Write skip files to disk after the search is completed.",
+    )
+    ps.add_argument(
+        "--include-endings",
+        action="store_true",
+        help="If set, needle will also consider endings during the search.",
+    )
+    ps.add_argument(
+        "--no-display",
+        action="store_true",
+        help="Do not display results of the search.",
+    )
+    ps.add_argument(
+        "--engine",
+        choices=["auto", "jax", "numpy"],
+        default="auto",
+        help="Search compute engine (needle-tpu extension).",
+    )
+    for sp in (pa, ps):
+        sp.add_argument(
             "--device",
             choices=["cuda", "cpu"],
             default="cuda",
@@ -46,13 +205,33 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _error_exit(message: str) -> None:
+    """clap-style invalid-usage exit (code 2)."""
+    print(f"error: {message}", file=sys.stderr)
+    sys.exit(2)
+
+
+def _runtime_error_exit(message: str) -> None:
+    """Reference main() returns Result: runtime failures print
+    "Error: ..." and exit 1, distinct from usage errors (exit 2)."""
+    print(f"Error: {message}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _find_videos(args, paths):
+    try:
+        return find_video_files(paths, not args.file_headers_only, True)
+    except (Error, IngestError) as e:
+        _error_exit(str(e))
+
+
 _metrics_hook_installed = False
 
 
 def main(argv=None) -> int:
     # INFO log subscriber as in the reference CLI (main.rs:255-259);
     # NEEDLE_TPU_TIMINGS=1 prints per-stage wall times on exit
-    from needle_tpu.tracing import install_cli_subscriber, report_metrics
+    from .tracing import install_cli_subscriber, report_metrics
 
     install_cli_subscriber()
     global _metrics_hook_installed

@@ -5,4 +5,9 @@
   * :mod:`needle_tpu_torch.fingerprint.plan` — its static numpy tables.
   * :mod:`needle_tpu_torch.fingerprint.ingest_oracle` — the canonical host
     oracle its borderline hashes are rescanned with.
+  * :mod:`needle_tpu_torch.fingerprint.numpy_impl`,
+    :mod:`~needle_tpu_torch.fingerprint.constants`,
+    :mod:`~needle_tpu_torch.fingerprint.decimate` — the numpy fingerprint
+    (`fingerprint_numpy`, the mono route's oracle), the chromaprint
+    constants and the half-band taps: copies of needle_tpu's.
 """

@@ -1,12 +1,25 @@
-"""Canonical host oracle of the fused ingest, without jax.
+"""Canonical host oracle of the fused ingest (the port's own copy of
+needle_tpu/fingerprint/ingest_oracle.py).
 
-The fused ingest's hash basis is defined by needle_tpu's canonical host
-oracle (needle_tpu/fingerprint/ingest_oracle.py): bit-exact integer
-decimation and downmix, then the device program's resample and fingerprint
-structure evaluated in float64. That module imports its resample plan from
-the jax package inside the functions copied below; these copies read the
-same numpy plan from `plan.py`, so the borderline rescan runs where jax is
-not installed. Every other helper is needle_tpu's own.
+The fused ingest (torch_impl.ingest_fingerprint_batched) computes [integer
+half-band decimate ->] integer downmix -> windowed-sinc polyphase resample
+-> chromaprint TEST2 fingerprint. The integer stages are bit-exactly
+replicated here; the resample and fingerprint stages run the device's exact
+program STRUCTURE in float64 and cast each resampled sample to f32 —
+defining a deterministic, backend-independent canonical basis for the
+fused path's hashes. The device's f32 arithmetic approximates this basis
+within a measured error bound; hashes whose quantization lands within
+NEEDLE_TPU_EXACT_EPS of a classifier or norm-zeroing threshold are flagged
+on the device and recomputed here (torch_impl.IngestDispatcher), making the
+fused path's output EXACTLY this oracle's output on every device. The
+arithmetic and its order of operations are needle_tpu's, so both packages
+rescan to the same hashes.
+
+The reference instead resamples on host with libswresample and hashes with
+C++ chromaprint (needle/src/audio/analyzer.rs:176-311); its hash basis
+differs from this one by the resampler choice, which the search engine's
+Hamming threshold absorbs (both bases are internally consistent, which is
+what opening/ending detection needs).
 """
 
 from __future__ import annotations
@@ -16,23 +29,181 @@ from typing import Tuple
 
 import numpy as np
 
-from needle_tpu.fingerprint.constants import FRAME_SIZE, HOP_SIZE, SAMPLE_RATE
-from needle_tpu.fingerprint.ingest_oracle import (
-    _RESCAN_EXTRA,
-    _fingerprint_window_f32,
-    _ingest_prepare_mid,
-    _prepare_mid_window,
+from .constants import (
+    CHROMA_FILTER_COEFFS,
+    FRAME_SIZE,
+    HOP_SIZE,
+    MAX_FILTER_WIDTH,
+    SAMPLE_RATE,
 )
-from needle_tpu.fingerprint.numpy_impl import (
+from .decimate import _HB_MAIN, _HB_RELAXED, _halfband_q14
+from .numpy_impl import (
     _classifier_values,
     chroma_features,
     chroma_filter,
     chroma_normalize,
+    classify,
     num_frames,
     spectral_energy,
 )
-
 from .plan import _ROWS_PER_FRAME, _RS_HALF_TAPS, _ingest_dims, _resample_plan
+
+_RESCAN_EXTRA = (len(CHROMA_FILTER_COEFFS) - 1) + (MAX_FILTER_WIDTH - 1)  # 19
+
+
+def decimate2_hb_np(x_2d: np.ndarray, odd_q, c0: int) -> np.ndarray:
+    """Pure-NumPy replica of the half-band decimator's exact integer
+    semantics — the single source of truth implemented three ways (native
+    ni_decimate2_hb, device torch_impl._decimate2_hb_i32, and this): zero-padded
+    edges, Q14 taps, (acc + 8192) >> 14 arithmetic shift, clip to i16 range.
+    Input/output are (frames, channels) int32 arrays; output has frames//2
+    rows (output row k reads input rows 2k + offset)."""
+    x = np.asarray(x_2d, dtype=np.int64)
+    n, C = x.shape
+    n_odd = len(odd_q)
+    H = 2 * n_odd - 1
+    out_n = n // 2
+    pad_top = H + 1
+    pad_bot = H + 1 + ((pad_top + n + H + 1) % 2)
+    xp = np.concatenate(
+        [np.zeros((pad_top, C), np.int64), x, np.zeros((pad_bot, C), np.int64)]
+    )
+
+    def sl(offset: int) -> np.ndarray:
+        o = offset + pad_top
+        return xp[o : o + 2 * out_n : 2]
+
+    acc = np.int64(c0) * sl(0)
+    for m, q in enumerate(np.asarray(odd_q)):
+        d = 2 * m + 1
+        acc = acc + np.int64(q) * (sl(-d) + sl(d))
+    y = (acc + 8192) >> 14
+    return np.clip(y, -32768, 32767).astype(np.int32)
+
+
+def _hb_stage_window(
+    x: np.ndarray, in_lo: int, out_lo: int, out_hi: int, odd_q, c0: int
+) -> np.ndarray:
+    """Outputs [out_lo, out_hi) of the half-band decimator given a local
+    input slice `x` covering global input rows [in_lo, in_lo + len(x)).
+    Output row k reads input rows 2k-H .. 2k+H (decimate2_hb_np's exact
+    integer semantics); the caller materializes zeros for out-of-domain
+    global rows, so the slice must cover [2*out_lo - H, 2*(out_hi-1)+H]."""
+    x64 = x.astype(np.int64)
+    n_out = out_hi - out_lo
+
+    def sl(off: int) -> np.ndarray:
+        o = 2 * out_lo + off - in_lo
+        return x64[o : o + 2 * n_out : 2]
+
+    acc = np.int64(c0) * sl(0)
+    for m, q in enumerate(np.asarray(odd_q)):
+        d = 2 * m + 1
+        acc = acc + np.int64(q) * (sl(-d) + sl(d))
+    y = (acc + 8192) >> 14
+    return np.clip(y, -32768, 32767).astype(np.int32)
+
+
+def _prepare_mid_window(
+    segment_i16: np.ndarray,
+    n_valid: int,
+    channels: int,
+    dec_factor: int,
+    in_len_mid: int,
+    g_lo: int,
+    g_hi: int,
+) -> np.ndarray:
+    """mono_mid[g_lo:g_hi] of _ingest_prepare_mid (int32), computed from
+    only the raw rows this window depends on — O(window), not O(lane).
+    Every stage is a global-index-deterministic FIR, so evaluating it on a
+    slice with enough context (H rows per half-band stage) reproduces the
+    whole-lane values exactly; out-of-domain global indices (g < 0, past
+    the lane, or >= the stage's valid count) are materialized as zeros,
+    matching the whole-lane zero-extension and inter-stage masking.
+    Indices may extend past the lane (the caller clips nothing): those
+    positions are zeros, exactly like the whole-lane path's padding."""
+    stages = []
+    if dec_factor == 4:
+        stages = [_halfband_q14(*_HB_RELAXED), _halfband_q14(*_HB_MAIN)]
+    elif dec_factor == 2:
+        stages = [_halfband_q14(*_HB_MAIN)]
+    raw_len = in_len_mid * channels * dec_factor
+    nv = min(int(n_valid), raw_len) // channels
+    # valid-count mask per stage output (the whole-lane path's x[nv:] = 0)
+    nvs = [nv]
+    for _ in stages:
+        nvs.append(nvs[-1] // 2)
+    # dependency intervals, innermost (raw rows) first
+    need = [(g_lo, g_hi)]
+    for odd_q, _c0 in reversed(stages):
+        H = 2 * len(odd_q) - 1
+        lo, hi = need[-1]
+        need.append((2 * lo - H, 2 * (hi - 1) + H + 1))
+    need.reverse()
+
+    r_lo, r_hi = need[0]
+    buf = np.zeros((r_hi - r_lo) * channels, np.int16)
+    a = max(0, r_lo)
+    s_lo = a * channels
+    s_hi = min(r_hi * channels, raw_len, len(segment_i16))
+    if s_hi > s_lo:
+        o = (a - r_lo) * channels
+        buf[o : o + (s_hi - s_lo)] = segment_i16[s_lo:s_hi]
+    x = buf.reshape(-1, channels).astype(np.int32)
+    gidx = np.arange(r_lo, r_hi)
+    x[(gidx < 0) | (gidx >= nv)] = 0
+    for s, (odd_q, c0) in enumerate(stages):
+        out_lo, out_hi = need[s + 1]
+        x = _hb_stage_window(x, need[s][0], out_lo, out_hi, odd_q, c0)
+        gidx = np.arange(out_lo, out_hi)
+        x[(gidx < 0) | (gidx >= nvs[s + 1])] = 0
+    if channels == 2:
+        ssum = x[:, 0] + x[:, 1]
+        return np.where(ssum < 0, -((-ssum) >> 1), ssum >> 1)
+    return np.ascontiguousarray(x[:, 0])
+
+
+def _ingest_prepare_mid(
+    segment_i16: np.ndarray,
+    n_valid: int,
+    channels: int,
+    dec_factor: int,
+    in_len_mid: int,
+) -> np.ndarray:
+    """Raw interleaved segment -> INTEGER mono at the mid rate, replicating
+    the device lane preparation exactly: zero-extend to the bucket's raw
+    length, zero frames >= the valid count, integer half-band decimation
+    with the same inter-stage masking, integer downmix. Returns an integer
+    dtype (i16 for the pass-through mono case, i32 otherwise) — every
+    sample is an exact integer, so downstream float conversion can happen
+    per-block instead of whole-lane (the whole-lane f64 cast + pad copies
+    were ~250 MB of memcpy per lane and dominated rescan cost once the
+    1e-5 margin made flags rare)."""
+    raw_len = in_len_mid * channels * dec_factor
+    seg = np.zeros(raw_len, np.int16)
+    take = min(len(segment_i16), raw_len)
+    seg[:take] = segment_i16[:take]
+    nv = min(int(n_valid), raw_len) // channels
+    if channels == 1 and dec_factor == 1:
+        seg[nv:] = 0
+        return seg  # int16 view of the exact device lane input
+    x = seg.reshape(-1, channels).astype(np.int32)
+    x[nv:] = 0
+    if dec_factor > 1:
+        nv1 = nv
+        if dec_factor == 4:
+            x = decimate2_hb_np(x, *_halfband_q14(*_HB_RELAXED))
+            nv1 //= 2
+            x[nv1:] = 0
+        x = decimate2_hb_np(x, *_halfband_q14(*_HB_MAIN))
+        nv1 //= 2
+        x[nv1:] = 0
+    if channels == 2:
+        s = x[:, 0] + x[:, 1]
+        mono = np.where(s < 0, -((-s) >> 1), s >> 1)
+    else:
+        mono = x[:, 0]
+    return np.ascontiguousarray(mono)
 
 
 @_functools.lru_cache(maxsize=None)
@@ -111,6 +282,26 @@ def resample_window_canonical(
         [np.zeros(_RS_HALF_TAPS, mono_mid_int.dtype), mono_mid_int]
     )
     return _resample_spans(xpad, mid_rate, [(t_lo, t_hi)])[0]
+
+
+def _fingerprint_window_f32(mono_f32: np.ndarray, n_sub: int) -> np.ndarray:
+    """Float-sample variant of numpy_impl's pipeline tail: (T,) f32 samples
+    at 11025 Hz -> first n_sub u32 subfingerprints. Framing matches
+    frame_signal; the window multiply matches spectral_energy's
+    (f64 window * f64 sample) -> f32 cast for float input."""
+    nf = num_frames(len(mono_f32))
+    if nf <= 0 or n_sub <= 0:
+        return np.zeros(0, np.uint32)
+    x = np.ascontiguousarray(mono_f32, dtype=np.float32)
+    frames = np.lib.stride_tricks.as_strided(
+        x,
+        shape=(nf, FRAME_SIZE),
+        strides=(x.strides[0] * HOP_SIZE, x.strides[0]),
+        writeable=False,
+    )
+    energy = spectral_energy(frames)
+    normalized = chroma_normalize(chroma_filter(chroma_features(energy)))
+    return classify(normalized)[:n_sub]
 
 
 def ingest_hashes_ranges_oracle(

@@ -17,8 +17,8 @@ from typing import Tuple
 
 import numpy as np
 
-from needle_tpu._shapes import size_bucket as bucket_frames
-from needle_tpu.fingerprint.constants import (
+from .._shapes import size_bucket as bucket_frames
+from .constants import (
     FRAME_SIZE,
     HOP_SIZE,
     NUM_BANDS,

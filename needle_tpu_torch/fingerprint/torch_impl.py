@@ -33,20 +33,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from needle_tpu.fingerprint.constants import (
+from .constants import (
     CHROMA_FILTER_COEFFS,
     CHROMA_NORM_THRESHOLD,
     HOP_SIZE,
     MAX_FILTER_WIDTH,
     SAMPLE_RATE,
 )
-from needle_tpu.fingerprint.decimate import (
+from .decimate import (
     _HB_MAIN,
     _HB_RELAXED,
     _halfband_q14,
     decimation_factor,
 )
-from needle_tpu.fingerprint.numpy_impl import (
+from .numpy_impl import (
     downmix_stereo_i16,
     fingerprint_numpy_window,
     merge_flag_ranges,
@@ -344,7 +344,7 @@ class IngestDispatcher:
             self._dispatch(nf_b)
 
     def _dispatch(self, nf_b: int) -> None:
-        from needle_tpu.tracing import metrics, span
+        from ..tracing import metrics, span
 
         refs, segs = self._pending.pop(nf_b)
         _, in_len, _ = plan._ingest_dims(self.mid_rate, nf_b)
@@ -371,7 +371,7 @@ class IngestDispatcher:
 
     def finish(self) -> dict:
         """Flush partial chunks, collect everything. Returns ref->hashes."""
-        from needle_tpu.tracing import span
+        from ..tracing import span
 
         for nf_b in list(self._pending):
             self._dispatch(nf_b)
@@ -393,7 +393,7 @@ class IngestDispatcher:
     def _rescan(self, results: dict, flags: dict) -> None:
         """Recompute borderline-flagged hashes with the canonical host
         oracle, in place."""
-        from needle_tpu.tracing import span
+        from ..tracing import span
 
         from .ingest_oracle import ingest_hashes_ranges_oracle
 
@@ -514,7 +514,7 @@ def _rescan_borderline(monos, results, flags) -> None:
     """Recompute flagged (borderline-quantized) subfingerprints with the
     host oracle, in place. Flagged runs are merged into ranges so the
     ~19-frame dependency overhead is shared."""
-    from needle_tpu.tracing import span
+    from ..tracing import span
 
     total = sum(int(f.sum()) for f in flags if f is not None)
     if not total:

@@ -15,8 +15,14 @@ from typing import List, Tuple
 
 import numpy as np
 
-from needle_tpu.duration import Duration
-from needle_tpu.search.oracle import RunEntry
+from ..duration import Duration
+from .oracle import (
+    RunEntry,
+    binary_heap_perm,
+    popcount_u32,
+    simhash32_from_prefix,
+    simhash_prefix,
+)
 
 
 def _diag_candidates(
@@ -30,8 +36,6 @@ def _diag_candidates(
     either sequence ends. Min-duration filtering happens later against real
     timestamps (_entries_from_candidates), exactly as the reference does.
     """
-    from needle_tpu.search.oracle import popcount_u32
-
     n, m = len(hs), len(hd)
     lo, hi = max(1, 1 - off), min(n, m - off)
     if hi <= lo:
@@ -74,8 +78,6 @@ class _EpisodeSide:
         pair this episode participates in — at N episodes that is N-1
         pairs, so per-pair recompute dominated host time at scale)."""
         if self._simhash_prefix is None:
-            from needle_tpu.search.oracle import simhash_prefix
-
             self._simhash_prefix = simhash_prefix(self.hashes)
         return self._simhash_prefix
 
@@ -92,8 +94,6 @@ def _heap_perm_segments(rank: np.ndarray, g0: np.ndarray, gb: np.ndarray) -> np.
     row updates. Segments of a rare size fall back to the scalar
     `binary_heap_perm`. Equivalence with the scalar spec is pinned by
     tests across sizes and tie patterns."""
-    from needle_tpu.search.oracle import binary_heap_perm
-
     n_tot = len(rank)
     out = np.empty(n_tot, np.int64)
     sizes = (gb[1:] - g0).astype(np.int64)
@@ -274,8 +274,6 @@ def _entries_batch(
     the min-duration filter run over a (e_pad, n_pad) ts table, simhashes
     batch per episode (prefix sums are per-episode anyway), and heap keys
     come from the arrays instead of per-entry ord_key() calls."""
-    from needle_tpu.search.oracle import simhash32_from_prefix
-
     if len(cand_row) == 0:
         return
     # reference walk order within each pair: sorted by (-i, -j)

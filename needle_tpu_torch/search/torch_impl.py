@@ -37,10 +37,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from needle_tpu._shapes import size_bucket as _bucket
-from needle_tpu.search.oracle import RunEntry
-
+from .._shapes import size_bucket as _bucket
 from .._torch_setup import resolve_device
+from ..errors import FrameHashDataNoEnding
 from .diag_runs import (
     D_TILE,
     batch_counts,
@@ -49,6 +48,7 @@ from .diag_runs import (
     popcount32,
 )
 from .host import _diag_candidates, _entries_batch, _EpisodeSide
+from .oracle import RunEntry
 from .prefilter import direct_diag_items, prefilter_band_masks, prefilter_pairs
 
 # Pairs per count-walk launch.
@@ -111,7 +111,7 @@ class TorchSearchEngine:
         pairs: List[Tuple[int, int]],
         is_opening: bool,
     ) -> Dict[int, List[RunEntry]]:
-        from needle_tpu.tracing import metrics, span
+        from ..tracing import metrics, span
 
         dev = self.device
         threshold = int(comparator.hash_match_threshold)
@@ -217,7 +217,7 @@ class TorchSearchEngine:
         """Count walk over the work rows in chunks; band_masks (rows,
         n_groups) int32 or None for all-ones. Returns the flagged (work
         row, diagonal offset) items as device int64 tensors."""
-        from needle_tpu.tracing import span
+        from ..tracing import span
 
         dev = table_d.device
         n_work = len(w_sa)
@@ -320,8 +320,8 @@ class TorchSearchEngine:
         """Engine entry point used by Comparator.run_with_frame_hashes.
         `threading` is accepted for engine-interface parity; the device
         batch is already parallel across pairs."""
-        from needle_tpu.comparator import OpeningAndEndingInfo
-        from needle_tpu.errors import FrameHashDataNoEnding
+        # imported here: comparator.py imports this module's package
+        from ..comparator import OpeningAndEndingInfo
 
         hash_durations = [fh.hash_duration() for fh in frame_hashes]
         # validate ending data before any device work

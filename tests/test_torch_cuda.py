@@ -83,9 +83,7 @@ def test_kernel_rejects_bad_operands(dev):
 
 
 def test_engine_on_card_equals_cpu(dev):
-    from needle_tpu.data import FrameHashes
-    from needle_tpu.duration import Duration
-    from needle_tpu_torch import Comparator
+    from needle_tpu_torch import Comparator, Duration, FrameHashes
 
     rng = np.random.default_rng(5)
     shared = rng.integers(0, 2**32, size=120, dtype=np.uint32)
@@ -168,8 +166,8 @@ def test_prefilter_on_card_equals_cpu(dev, monkeypatch):
 
 
 def test_fingerprint_batch_on_card_equals_numpy(dev):
-    from needle_tpu.fingerprint.numpy_impl import fingerprint_numpy
     from needle_tpu_torch.fingerprint import torch_impl as T
+    from needle_tpu_torch.fingerprint.numpy_impl import fingerprint_numpy
 
     rng = np.random.default_rng(23)
     monos = [(rng.standard_normal(11025 * s) * 5000).astype(np.int16)

@@ -194,7 +194,7 @@ def test_lane_chunks(rng, monkeypatch):
 def test_rescan_fires_and_keeps_hashes(rng, monkeypatch):
     """The equality above is not vacuous: with a paranoid margin every hash
     is flagged and rescanned, and the output is unchanged."""
-    from needle_tpu import tracing
+    from needle_tpu_torch import tracing
 
     seg = _noise(rng, 16000 * 6)
     default = T.fingerprint_ingest_batch([seg], 16000, 1, device="cpu")[0]

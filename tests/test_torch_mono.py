@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 
 from needle_tpu import ingest
-from needle_tpu import tracing
 from needle_tpu.fingerprint import jax_impl as J
 from needle_tpu.fingerprint.numpy_impl import fingerprint_numpy
 from needle_tpu.testing import _music_like
+from needle_tpu_torch import tracing
 from needle_tpu_torch.fingerprint import torch_impl as T
 
 VALUE_TOL = 5e-6

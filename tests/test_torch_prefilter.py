@@ -4,7 +4,9 @@ correlation, per-pair and dense band masks, the pair prefilter, direct
 diagonal items and the tile plan, all compared exactly (integer and bool
 outputs equal, item arrays equal in order); and TorchSearchEngine on each
 of its four routes (direct, band, pair, walk-all) against JaxSearchEngine
-and NumpySearchEngine: RunEntry lists in heap order and SearchResults.
+and NumpySearchEngine: RunEntry lists in heap order and SearchResults,
+each package searching its own FrameHashes built from the same arrays and
+the outputs compared field by field (`_canon`).
 
 The cases are those of tests/test_search_prefilter.py and
 tests/test_search_direct.py. `test_direct_overflow_redispatch` and
@@ -16,15 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from needle_tpu.data import FrameHashes
-from needle_tpu.duration import Duration
+import needle_tpu.data as jax_data
+import needle_tpu.duration as jax_duration
 from needle_tpu.search import jax_impl as S
 from needle_tpu.search import prefilter as JP
 from needle_tpu.search.pallas_impl import batch_counts_pallas
-from needle_tpu.tracing import metrics
+from needle_tpu_torch.data import FrameHashes
+from needle_tpu_torch.duration import Duration
 from needle_tpu_torch.search import diag_runs as D
 from needle_tpu_torch.search import prefilter as TP
 from needle_tpu_torch.search import torch_impl as T
+from needle_tpu_torch.tracing import metrics
 
 STEP = 247619033  # ~0.248 s per hash, in ns
 
@@ -415,14 +419,29 @@ def test_member_matrix_copy():
 # -- the engine on every route -------------------------------------------------
 
 
+def _canon(x):
+    """Package-neutral form of search outputs: a RunEntry as its Ord key
+    (every field, Durations in nanoseconds), a Duration in nanoseconds,
+    containers element by element."""
+    if hasattr(x, "ord_key"):
+        return ("RunEntry",) + x.ord_key()
+    if hasattr(x, "total_nanos"):
+        return x.total_nanos()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_canon(v) for v in x)
+    return x
+
+
 def _fh(h, ending=None):
+    """The arrays of one episode's FrameHashes; `_search` builds them in
+    the searching comparator's package."""
     h = np.asarray(h, dtype=np.uint32)
     ts = (2600090703 + np.arange(len(h)) * STEP).astype(np.int64)
     if ending is None:
         ending, ets = np.zeros(0, np.uint32), np.zeros(0, np.int64)
     else:
         ets = (900_000_000_000 + np.arange(len(ending)) * STEP).astype(np.int64)
-    return FrameHashes(h, ts, ending, ets, Duration.from_millis(300), "f" * 32)
+    return (h, ts, ending, ets)
 
 
 def _mixed_library(seed, with_endings=False):
@@ -466,13 +485,16 @@ def _weakest_library():
     return [_fh(h1), _fh(h2)]
 
 
-def _search(make, fhs, include_endings):
+def _search(make, specs, include_endings):
+    cmp = make([f"v{k}.mkv" for k in range(len(specs))])
+    fh, dur = ((FrameHashes, Duration) if cmp.__module__.startswith(
+        "needle_tpu_torch") else (jax_data.FrameHashes, jax_duration.Duration))
+    fhs = [fh(*arrays, dur.from_millis(300), "f" * 32) for arrays in specs]
     cmp = (
-        make([f"v{k}.mkv" for k in range(len(fhs))])
-        .with_hash_match_threshold(10)
+        cmp.with_hash_match_threshold(10)
         .with_include_endings(include_endings)
-        .with_min_opening_duration(Duration.from_secs(20))
-        .with_min_ending_duration(Duration.from_secs(20))
+        .with_min_opening_duration(dur.from_secs(20))
+        .with_min_ending_duration(dur.from_secs(20))
     )
     infos = cmp.search_pair_infos(fhs, cmp.pair_order(len(fhs)))
     entries = [
@@ -481,7 +503,7 @@ def _search(make, fhs, include_endings):
         for i in infos
     ]
     res = cmp.run_with_frame_hashes(fhs, False, False, False)
-    return entries, [(r.opening, r.ending) for r in res]
+    return _canon((entries, [(r.opening, r.ending) for r in res]))
 
 
 ROUTES = {

@@ -2,34 +2,60 @@
 against needle_tpu's engines, and the port's host-helper copies
 (needle_tpu_torch/search/host.py) against their originals. Everything is
 compared exactly: RunEntry lists including their BinaryHeap backing order,
-and SearchResults."""
+and SearchResults. Each package gets its own FrameHashes, built from the
+same numpy arrays, and outputs are compared field by field (`_canon`):
+objects of the two packages never compare equal to each other."""
 
 import pickle
 
 import numpy as np
 import pytest
 
+import needle_tpu.data as jax_data
+import needle_tpu.duration as jax_duration
 from needle_tpu import Comparator as JaxComparator
-from needle_tpu.data import FrameHashes
-from needle_tpu.duration import Duration
-from needle_tpu.errors import FrameHashDataNoEnding
 from needle_tpu.search import jax_impl as S
 from needle_tpu_torch import Comparator
+from needle_tpu_torch.data import FrameHashes
+from needle_tpu_torch.duration import Duration
+from needle_tpu_torch.errors import FrameHashDataNoEnding
 from needle_tpu_torch.search import host as H
 from needle_tpu_torch.search import torch_impl as T
 
 STEP = 247619033  # ~0.248 s per hash, in ns
 
 
+def _canon(x):
+    """Package-neutral form of search outputs: a RunEntry as its Ord key
+    (every field, Durations in nanoseconds), a Duration in nanoseconds,
+    containers element by element."""
+    if hasattr(x, "ord_key"):
+        return ("RunEntry",) + x.ord_key()
+    if hasattr(x, "total_nanos"):
+        return x.total_nanos()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_canon(v) for v in x)
+    return x
+
+
 def _fh(opening, ending=None, md5="b" * 32):
+    """The arrays of one episode's FrameHashes; `_side` builds them per
+    package."""
+
     def ts(h, base):
         return (base + np.arange(len(h)) * STEP).astype(np.int64)
 
     ending = np.zeros(0, np.uint32) if ending is None else ending
-    return FrameHashes(
-        opening, ts(opening, 2600090703), ending, ts(ending, 900_000_000_000),
-        Duration.from_millis(300), md5,
-    )
+    return (opening, ts(opening, 2600090703), ending,
+            ts(ending, 900_000_000_000), 300_000_000, md5)
+
+
+def _side(specs, pkg):
+    """FrameHashes of the port ("torch") or of needle_tpu ("jax")."""
+    fh, dur = ((FrameHashes, Duration) if pkg == "torch"
+               else (jax_data.FrameHashes, jax_duration.Duration))
+    return [fh(o, ot, e, et, dur.from_nanos(hd), md5)
+            for o, ot, e, et, hd, md5 in specs]
 
 
 def _shared_run_library(rng, with_endings=False):
@@ -63,11 +89,16 @@ def _overflow_library(rng):
     return fhs
 
 
-def _run(cmp, fhs, include_endings, min_secs):
+def _run(cmp, specs, include_endings, min_secs):
+    """(entries per pair, SearchResults) of one comparator, in `_canon`
+    form; the comparator's own package builds the inputs."""
+    pkg = "torch" if isinstance(cmp, Comparator) else "jax"
+    dur = Duration if pkg == "torch" else jax_duration.Duration
+    fhs = _side(specs, pkg)
     cmp = (
         cmp.with_include_endings(include_endings)
-        .with_min_opening_duration(Duration.from_secs(min_secs))
-        .with_min_ending_duration(Duration.from_secs(min_secs))
+        .with_min_opening_duration(dur.from_secs(min_secs))
+        .with_min_ending_duration(dur.from_secs(min_secs))
     )
     pairs = cmp.pair_order(len(fhs))
     infos = cmp.search_pair_infos(fhs, pairs)
@@ -79,7 +110,7 @@ def _run(cmp, fhs, include_endings, min_secs):
     res = cmp.run_with_frame_hashes(
         fhs, display=False, use_skip_files=False, write_skip_files=False
     )
-    return entries, [(r.opening, r.ending) for r in res]
+    return _canon((entries, [(r.opening, r.ending) for r in res]))
 
 
 def _engines(monkeypatch, n, with_jax=True):
@@ -120,7 +151,7 @@ def test_engine_matches_jax_and_numpy(rng, monkeypatch, fixture,
 
 
 def test_engine_raises_without_ending_data(rng):
-    fhs = _shared_run_library(rng, with_endings=False)
+    fhs = _side(_shared_run_library(rng, with_endings=False), "torch")
     cmp = Comparator([f"p{k}.mkv" for k in range(4)], device="cpu")
     with pytest.raises(FrameHashDataNoEnding):
         cmp.with_include_endings(True).search_pair_infos(fhs, [(0, 1)])
@@ -208,6 +239,7 @@ def test_entries_batch_and_lazy_entries_copy(rng):
         sides_h.append(H._EpisodeSide(hashes, ts))
         sides_s.append(S._EpisodeSide(hashes, ts))
     hds = [Duration.from_nanos(123800000)] * n_eps
+    jax_hds = [jax_duration.Duration.from_nanos(123800000)] * n_eps
     work = [(a, b) for a in range(n_eps) for b in range(a + 1, n_eps)]
     w_a = np.array([a for a, _ in work], np.int64)
     w_b = np.array([b for _, b in work], np.int64)
@@ -229,21 +261,22 @@ def test_entries_batch_and_lazy_entries_copy(rng):
     want = {p: [] for p in range(len(work))}
     H._entries_batch(got, *args, sides_h, hds, True, int(3e9), n_pad, n_eps)
     eng = S.JaxSearchEngine.__new__(S.JaxSearchEngine)
-    eng._entries_batch(want, *args, sides_s, hds, True, int(3e9), n_pad, n_eps)
+    eng._entries_batch(want, *args, sides_s, jax_hds, True, int(3e9), n_pad,
+                       n_eps)
     assert sum(len(v) for v in got.values()) > 0
     for p in want:
         g, w = got[p], want[p]
-        assert list(g) == list(w), p
+        assert _canon(list(g)) == _canon(list(w)), p
         if not len(w):
             continue
         assert isinstance(g, H._LazyEntries)
         for src in (True, False):
             for x, y in zip(g.vote_cols(src), w.vote_cols(src)):
                 np.testing.assert_array_equal(x, y)
-            assert g.entry_run_hd(len(g) - 1, src) == w.entry_run_hd(
-                len(w) - 1, src
+            assert _canon(g.entry_run_hd(len(g) - 1, src)) == _canon(
+                w.entry_run_hd(len(w) - 1, src)
             )
-        assert pickle.loads(pickle.dumps(g)) == list(w)
+        assert _canon(pickle.loads(pickle.dumps(g))) == _canon(list(w))
 
 
 def test_engine_chunk_boundaries(rng, monkeypatch):

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from needle_tpu.duration import Duration
 from needle_tpu.testing import make_synthetic_season
+from needle_tpu_torch.duration import Duration
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -58,9 +58,20 @@ def test_cli_slice_matches_jax(tmp_path):
 
 
 _NO_JAX = """
+import importlib.abc
 import sys
-from needle_tpu.testing import make_synthetic_season
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "needle_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
 from needle_tpu_torch.cli import main
+from needle_tpu_torch.testing import make_synthetic_season
 
 season = sys.argv[1]
 make_synthetic_season(season, num_episodes=2, episode_secs=90,
@@ -107,16 +118,18 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 def test_compressed_media_is_refused(tmp_path):
     """Compressed media goes through the native decode, as in needle_tpu:
-    an undecodable container is refused with the same IngestError."""
+    an undecodable container is refused with an IngestError of the same
+    message."""
     from needle_tpu import Analyzer as JaxAnalyzer
-    from needle_tpu.ingest import IngestError
+    from needle_tpu.ingest import IngestError as JaxIngestError
     from needle_tpu_torch import Analyzer
+    from needle_tpu_torch.ingest import IngestError
 
     p = tmp_path / "ep.mkv"
     p.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(16384))
     with pytest.raises(IngestError, match="open failed") as ours:
         Analyzer([p], device="cpu").run(0.3, persist=False)
-    with pytest.raises(IngestError) as ref:
+    with pytest.raises(JaxIngestError) as ref:
         JaxAnalyzer([p], backend="jax").run(0.3, persist=False)
     assert str(ours.value) == str(ref.value)
 
