@@ -13,12 +13,14 @@ the card, then drives the port's main path once: `analyze
 checks the result against the truth, the canonical host oracle and the
 numpy search engine. Then the library path:
 
-- long bucket: the count walk at n_pad 32,768 (per-row-block staging)
-  against its plain version, and a 2-episode search whose sides bucket
+- long bucket: the count walk at n_pad 32,768 against its plain version
+  and the previous design, and a 2-episode search whose sides bucket
   there;
 - library: bench.py's `mixed1000` library (1000 episodes x 2400 hashes,
   20 shows, 499,500 pairs) searched by the auto route (direct flagging)
-  and by walk-all, and its first 300 episodes by the band-mask route;
+  and by walk-all (then walk-all once more, every launch replayed on the
+  previous design of the count walk kernel, compared and timed), and its
+  first 300 episodes by the band-mask route;
 - mono route: the season at 11025 Hz mono through the pre-decoded mono
   fingerprint path and the search.
 
@@ -27,14 +29,16 @@ package): its references are the port's own (NumpySearchEngine,
 fingerprint_numpy, the canonical ingest oracle), and it fails if either
 package was loaded by its end. Every phase raises on failure: the script
 then exits nonzero and prints no result. The count walk's phases print,
-per timed shape, the cells the kernel walked (valid (i, j) cells of the
-real pairs on unmasked row blocks), cells/s, and the least time the card
+per timed shape, the count walk kernel's time beside its previous design's
+(`batch_counts_popc`, timed in turns in the same process), the cells the
+kernel walked (valid (i, j) cells of the real pairs on unmasked row
+blocks), cells/s, and the least time the card
 could take for them: the larger of 64 int8 operations per cell (a 32-deep
 +/-1 dot product) at 1,979 TOP/s and the bytes the call moves (hash rows
 in, counts out) at 3.35 TB/s, the H100 SXM's published peaks. On success
 the line before the last is a JSON object describing each kernel
 (launches on the main path, error against the plain version, times of
-both, the bound) and the last line is
+both, the previous design's time, the bound) and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
@@ -137,11 +141,11 @@ def walk_bytes(chunk, n_pad, n_out):
     return chunk * n_pad * 8 + chunk * n_out * 4
 
 
-def log_bound(label, launches, ms, cells, moved):
+def log_bound(label, launches, ms, cells, moved, prev_ms=None):
     """Log cells/s and the bound of `launches` count walk launches that
-    took `ms` of kernel time; return (bound ms, "operations" or "bytes"):
-    the larger of the cells' int8 operations at the card's peak and the
-    moved bytes at its memory rate."""
+    took `ms` of kernel time (and `prev_ms` on the previous design); return
+    (bound ms, "operations" or "bytes"): the larger of the cells' int8
+    operations at the card's peak and the moved bytes at its memory rate."""
     ops_ms = OPS_PER_CELL * cells / PEAK_INT8_OPS * 1e3
     bytes_ms = moved / PEAK_BYTES * 1e3
     bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
@@ -150,17 +154,27 @@ def log_bound(label, launches, ms, cells, moved):
         f"{cells} cells walked, {cells / (ms * 1e-3):.4g} cells/s; bound "
         f"{bound_ms:.4f} ms (set by {bound_by}), kernel at "
         f"{bound_ms / ms:.4f} of it")
+    if prev_ms is not None:
+        log(f"count walk {label}, previous design: {prev_ms:.4f} ms, "
+            f"{cells / (prev_ms * 1e-3):.4g} cells/s, at {bound_ms / prev_ms:.4f} "
+            f"of the bound; speed-up {prev_ms / ms:.3f}x")
     return bound_ms, bound_by
 
 
 class WalkTimer:
     """Times every count walk launch of the engine with CUDA events around
     it (no synchronisation inside the run) and adds up the bytes each
-    launch moves. Use as a context manager around a search."""
+    launch moves. Use as a context manager around a search. With
+    `prev=True` every launch is also run on the previous design of the
+    kernel (batch_counts_popc, in turns: new first on even launches, old
+    first on odd ones), timed, and held exactly against it; that search's
+    wall then measures nothing."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, prev=False):
         self.torch = torch
+        self.prev = prev
         self.events = []
+        self.prev_events = []
         self.moved = 0
 
     def __enter__(self):
@@ -169,13 +183,29 @@ class WalkTimer:
         self.real = T.batch_counts
         torch = self.torch
 
-        def counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
+        from needle_tpu_torch.search import diag_runs as D
+
+        def timed(fn, events, args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = self.real(nv, mv, lm, thr, src, dst, n_pad, bm=bm)
+            out = fn(*args[:7], bm=args[7])
             end.record()
-            self.events.append((start, end))
+            events.append((start, end))
+            return out
+
+        def counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
+            args = (nv, mv, lm, thr, src, dst, n_pad, bm)
+            new_first = len(self.events) % 2 == 0
+            if self.prev and not new_first:
+                old = timed(D.batch_counts_popc, self.prev_events, args)
+            out = timed(self.real, self.events, args)
+            if self.prev and new_first:
+                old = timed(D.batch_counts_popc, self.prev_events, args)
+            if self.prev and not torch.equal(out, old):
+                raise AssertionError(
+                    f"count walk kernel != previous design at launch "
+                    f"{len(self.events)} (n_pad {n_pad})")
             self.moved += walk_bytes(src.shape[0], n_pad, out.shape[1])
             return out
 
@@ -187,10 +217,13 @@ class WalkTimer:
 
         T.batch_counts = self.real
 
-    def log(self, label, cells):
+    def ms(self, events=None):
         self.torch.cuda.synchronize()
-        ms = sum(s.elapsed_time(e) for s, e in self.events)
-        return log_bound(label, len(self.events), ms, cells, self.moved)
+        return sum(s.elapsed_time(e) for s, e in
+                   (self.events if events is None else events))
+
+    def log(self, label, cells):
+        return log_bound(label, len(self.events), self.ms(), cells, self.moved)
 
 
 def all_pairs_cells(lengths):
@@ -200,16 +233,27 @@ def all_pairs_cells(lengths):
     return (sum(m) ** 2 - sum(x * x for x in m)) // 2
 
 
+def _kernel_vs_previous(torch, D, args, reps):
+    """Median ms of the count walk kernel and of its previous design on
+    the same operands, timed in turns: new, old, new, old. Returns (best
+    new, best old, both lists)."""
+    new, old = [], []
+    for _ in range(2):
+        new.append(_median_ms(torch, lambda: D.batch_counts(*args), reps))
+        old.append(_median_ms(torch, lambda: D.batch_counts_popc(*args), reps))
+    return min(new), min(old), new, old
+
+
 def kernel_phase(torch, np):
-    """The count walk kernel against batch_counts_reference on the card,
-    exactly, at the season's shapes; median times of both, and the
-    kernel's bound."""
+    """The count walk kernel against batch_counts_reference and against
+    the previous design on the card, exactly, at the season's shapes;
+    median times of all three, and the kernel's bound."""
     from needle_tpu_torch.search import diag_runs as D
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda", 0)
-    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}, "cells": {},
-              "bound_ms": {}, "bound_by": {}}
+    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}, "prev_ms": {},
+              "cells": {}, "bound_ms": {}, "bound_by": {}}
     for n_pad in N_PADS:
         src = rng.integers(0, 2**32, size=(LANES, n_pad), dtype=np.uint32)
         dst = rng.integers(0, 2**32, size=(LANES, n_pad), dtype=np.uint32)
@@ -240,31 +284,34 @@ def kernel_phase(torch, np):
         got = D.batch_counts(*args)
         torch.cuda.synchronize()
         want = D.batch_counts_reference(*args)
+        prev = D.batch_counts_popc(*args)
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item())
         flagged = int((want > 0).sum().item())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"count walk kernel != reference at n_pad {n_pad}")
+        if not torch.equal(got, prev):
+            raise AssertionError(f"count walk kernel != previous design at n_pad {n_pad}")
         if flagged < PAIRS:
             raise AssertionError(f"only {flagged} flagged diagonals at n_pad {n_pad}")
         result["max_abs_err"] = max(result["max_abs_err"], err)
-        # times: plain, kernel, kernel, plain
+        # plain first and last; kernel and previous design in turns between
         plain = [_median_ms(torch, lambda: D.batch_counts_reference(*args), 3)]
-        kern = [_median_ms(torch, lambda: D.batch_counts(*args), 20)]
-        kern.append(_median_ms(torch, lambda: D.batch_counts(*args), 20))
+        ms, prev_ms, kern, old = _kernel_vs_previous(torch, D, args, 20)
         plain.append(_median_ms(torch, lambda: D.batch_counts_reference(*args), 3))
-        result["ms"][n_pad] = min(kern)
+        result["ms"][n_pad], result["prev_ms"][n_pad] = ms, prev_ms
         result["plain_ms"][n_pad] = min(plain)
         log(
             f"count walk n_pad {n_pad}, {LANES} lanes ({PAIRS} pairs): kernel "
-            f"== reference on {flagged} flagged diagonals; kernel {kern} ms, "
-            f"plain {plain} ms (median per call, two rounds)"
+            f"== reference == previous design on {flagged} flagged diagonals; "
+            f"kernel {kern} ms, previous design {old} ms, plain {plain} ms "
+            f"(median per call, two rounds)"
         )
         cells = walked_cells(np, nv, mv, bm, n_pad, PAIRS)
         result["cells"][n_pad] = cells
         result["bound_ms"][n_pad], result["bound_by"][n_pad] = log_bound(
-            f"{LANES} x {n_pad}", 1, result["ms"][n_pad], cells,
-            walk_bytes(LANES, n_pad, int(got.shape[1])),
+            f"{LANES} x {n_pad}", 1, ms, cells,
+            walk_bytes(LANES, n_pad, int(got.shape[1])), prev_ms,
         )
     return result
 
@@ -445,10 +492,10 @@ def _to_card(torch, np, a):
 
 
 def long_bucket_phase(torch, np):
-    """The count walk at n_pad 32,768 against its plain version, exactly:
-    a full-mask lane, a lane with a gapped mask, a padding lane. Then a
-    2-episode search whose sides (30,000 hashes) bucket to 32,768, on the
-    count walk's per-row-block staging."""
+    """The count walk at n_pad 32,768 against its plain version and the
+    previous design, exactly: a full-mask lane, a lane with a gapped mask,
+    a padding lane. Then a 2-episode search whose sides (30,000 hashes)
+    bucket to 32,768."""
     from needle_tpu_torch.comparator import Comparator
     from needle_tpu_torch.data import FrameHashes
     from needle_tpu_torch.duration import Duration
@@ -465,29 +512,30 @@ def long_bucket_phase(torch, np):
     bm[2] = 0  # a padding lane, as the engine fills them
     args = [_to_card(torch, np, a) for a in (nv, mv, lm, thr, src, dst)]
     args += [n_pad, _to_card(torch, np, bm)]
-    if n_pad <= D.WHOLE_ROW_MAX_NPAD:
-        raise AssertionError(f"n_pad {n_pad} takes the whole-row staging")
     got = D.batch_counts(*args)
     torch.cuda.synchronize()
     want = D.batch_counts_reference(*args)
+    prev = D.batch_counts_popc(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max().item())
     flagged = int((want > 0).sum().item())
     if err != 0 or not torch.equal(got, want):
         raise AssertionError(f"count walk kernel != reference at n_pad {n_pad}")
+    if not torch.equal(got, prev):
+        raise AssertionError(f"count walk kernel != previous design at n_pad {n_pad}")
     if not want[0].any() or got[2].any():
         raise AssertionError(
             f"n_pad {n_pad}: the planted run of lane 0 was not flagged, or "
             "the padding lane was"
         )
     plain = _median_ms(torch, lambda: D.batch_counts_reference(*args), 1)
-    kern = _median_ms(torch, lambda: D.batch_counts(*args), 10)
-    log(f"count walk n_pad {n_pad} (per-row-block staging), 3 lanes: kernel "
-        f"== reference on {flagged} flagged diagonals; kernel {kern:.3f} ms, "
-        f"plain {plain:.1f} ms")
+    kern, prev_ms, kerns, olds = _kernel_vs_previous(torch, D, args, 10)
+    log(f"count walk n_pad {n_pad}, 3 lanes: kernel == reference == previous "
+        f"design on {flagged} flagged diagonals; kernel {kerns} ms, previous "
+        f"design {olds} ms, plain {plain:.1f} ms")
     cells = walked_cells(np, nv, mv, bm, n_pad, 2)  # lane 2 is padding
     bound_ms, bound_by = log_bound(f"3 x {n_pad}", 1, kern, cells,
-                                   walk_bytes(3, n_pad, int(got.shape[1])))
+                                   walk_bytes(3, n_pad, int(got.shape[1])), prev_ms)
 
     n = LONG_HASHES
     shared = rng.integers(0, 2**32, size=400, dtype=np.uint32)
@@ -514,8 +562,8 @@ def long_bucket_phase(torch, np):
         raise AssertionError(f"long-bucket search found {len(res)} of 2 runs")
     log(f"long-bucket search: 2 x {n} hashes (n_pad {n_pad}), planted run "
         f"found in both, {launches} kernel launches")
-    return {"ms": kern, "plain_ms": plain, "max_abs_err": err, "cells": cells,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"ms": kern, "prev_ms": prev_ms, "plain_ms": plain, "max_abs_err": err,
+            "cells": cells, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _mixed_library(np, n_eps):
@@ -540,10 +588,12 @@ def _mixed_library(np, n_eps):
     return fhs, truth
 
 
-def _library_search(torch, fhs, env):
+def _library_search(torch, fhs, env, prev=False):
     """One search of `fhs` on the card with `env` set: (entries per pair,
     SearchResults, wall s, search.prefilter s, count walk launches and
-    their timer, direct items, walk calls that got band masks)."""
+    their timer, direct items, walk calls that got band masks). With
+    `prev`, every count walk launch is replayed on the previous design
+    (WalkTimer)."""
     from needle_tpu_torch.comparator import Comparator
     from needle_tpu_torch.search import diag_runs as D
     from needle_tpu_torch.search import torch_impl as T
@@ -566,7 +616,7 @@ def _library_search(torch, fhs, env):
         D.LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with WalkTimer(torch) as timer:
+        with WalkTimer(torch, prev=prev) as timer:
             infos = cmp.search_pair_infos(fhs, pairs)
         data = [(i, j, info) for (i, j), info in zip(pairs, infos)
                 if not info.is_empty()]
@@ -618,10 +668,19 @@ def library_phase(torch, np):
         raise AssertionError("mixed1000's auto route was not direct flagging")
     if walk["launches"] <= 0 or walk["direct_items"] or walk["masked_walks"]:
         raise AssertionError("walk-all did not walk every pair unmasked")
-    walk["timer"].log("of mixed1000 walk-all",
-                      all_pairs_cells([len(f.opening_hashes) for f in fhs]))
+    lib_cells = all_pairs_cells([len(f.opening_hashes) for f in fhs])
+    walk["timer"].log("of mixed1000 walk-all", lib_cells)
     if auto["entries"] != walk["entries"] or auto["results"] != walk["results"]:
         raise AssertionError("mixed1000: direct route != walk-all")
+    # walk-all again, each launch also on the previous design, in turns
+    replay = _library_search(torch, fhs, {"NEEDLE_TPU_SEARCH_PREFILTER": "off"},
+                             prev=True)
+    if replay["entries"] != walk["entries"] or replay["results"] != walk["results"]:
+        raise AssertionError("mixed1000: the replayed walk-all differs")
+    timer = replay["timer"]
+    walk_ms, walk_prev_ms = timer.ms(), timer.ms(timer.prev_events)
+    log_bound("of mixed1000 walk-all, replayed beside the previous design",
+              len(timer.events), walk_ms, lib_cells, timer.moved, walk_prev_ms)
     if len(auto["results"]) != LIB_EPISODES:
         raise AssertionError(f"mixed1000: {len(auto['results'])} results")
     for (op, _), (s0, s1) in zip(auto["results"], truth):
@@ -759,6 +818,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"][n_pad],
+        "prev_ms": kernel["prev_ms"][n_pad],
         "plain_ms": kernel["plain_ms"][n_pad],
         "bound_ms": kernel["bound_ms"][n_pad],
         "bound_by": kernel["bound_by"][n_pad],

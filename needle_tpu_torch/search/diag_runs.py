@@ -1,9 +1,14 @@
 """Diagonal-run count walk: the CUDA kernel's wrapper and its plain version.
 
 Port of needle_tpu/search/pallas_impl.py. `batch_counts` launches the
-hand-written kernel csrc/diag_runs.cu for CUDA tensors; for CPU tensors it
-runs `batch_counts_reference`, the plain PyTorch formulation, which is also
-what the kernel is held against on the card.
+hand-written kernel csrc/diag_runs.cu (Hamming distances on the int8
+tensor cores, match bits packed 32 rows a word along each diagonal, runs
+counted per word) for CUDA tensors; for CPU tensors it runs
+`batch_counts_reference`, the plain PyTorch formulation, which is also what
+the kernel is held against on the card. `batch_counts_popc` launches the
+previous design (one thread per diagonal, a popcount per cell), kept only
+to time the two in one process. `match_words` and `runs_from_words` are a
+CPU model of the kernel's run bookkeeping, for the tests.
 
 Hashes travel as int32 bit patterns (torch has no usable uint32 shifts on
 the CPU); `popcount32` widens to int64 before shifting, since `>>` on int32
@@ -27,11 +32,8 @@ G_TILES = 8  # diagonal tiles per mask group
 # Kernel launches in this process; a run reads it to show that the count
 # walk went through the CUDA kernel.
 LAUNCHES = 0
-
-# Largest bucket whose two hash rows (8 * n_pad bytes) fit in the 227 KB of
-# shared memory a block can use: up to it the kernel stages whole rows,
-# above it one 512-row block at a time.
-WHOLE_ROW_MAX_NPAD = 232448 // 8
+# Launches of the previous design (batch_counts_popc), counted apart.
+LAUNCHES_POPC = 0
 
 # Cells (pairs x rows x diagonals) per slab of the plain version: bounds
 # its intermediates to a few hundred MB.
@@ -142,21 +144,9 @@ def _check_operands(nv, mv, lm, thr, src, dst, n_pad, bm):
             raise ValueError(f"{name} must be contiguous")
 
 
-def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
-    """Per-diagonal candidate counts of a chunk of pairs.
-
-    nv, mv, lm, thr: (chunk,) int32 valid lengths, run bound and Hamming
-    threshold per pair; src, dst: (chunk, n_pad) int32 hash bit patterns,
-    n_pad a multiple of 512; bm: optional (chunk, n_groups) int32 row-block
-    masks (default: every block). Returns (chunk, n_tiles*512) int32;
-    diagonal index d is offset d - (n_pad - 1).
-
-    CUDA tensors launch the hand-written kernel (csrc/diag_runs.cu), with
-    whole-row staging up to WHOLE_ROW_MAX_NPAD and per-row-block staging
-    above; CPU tensors run `batch_counts_reference`."""
-    global LAUNCHES
-    if src.device.type == "cpu":
-        return batch_counts_reference(nv, mv, lm, thr, src, dst, n_pad, bm)
+def _launch(entry, nv, mv, lm, thr, src, dst, n_pad, bm):
+    """Run C entry point `entry` of the kernel library on CUDA operands;
+    returns the (chunk, n_tiles*512) int32 counts."""
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     chunk = src.shape[0]
@@ -170,14 +160,126 @@ def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
     counts = torch.empty((chunk, n_out), dtype=torch.int32, device=src.device)
     if chunk == 0:
         return counts
-    lib = _build.load()
-    err = lib.needle_diag_runs(
+    err = getattr(_build.load(), entry)(
         nv.data_ptr(), mv.data_ptr(), lm.data_ptr(), thr.data_ptr(),
         bm.data_ptr(), bm.shape[1], src.data_ptr(), dst.data_ptr(),
         counts.data_ptr(), chunk, n_pad, n_out,
-        int(n_pad <= WHOLE_ROW_MAX_NPAD),
         torch.cuda.current_stream(src.device).cuda_stream,
     )
-    _build.check(err, "needle_diag_runs")
-    LAUNCHES += 1
+    _build.check(err, entry)
     return counts
+
+
+def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
+    """Per-diagonal candidate counts of a chunk of pairs.
+
+    nv, mv, lm, thr: (chunk,) int32 valid lengths, run bound and Hamming
+    threshold per pair; src, dst: (chunk, n_pad) int32 hash bit patterns,
+    n_pad a multiple of 512; bm: optional (chunk, n_groups) int32 row-block
+    masks (default: every block). Returns (chunk, n_tiles*512) int32;
+    diagonal index d is offset d - (n_pad - 1).
+
+    CUDA tensors launch the tensor-core kernel (csrc/diag_runs.cu,
+    needle_diag_runs), one kernel for every n_pad; CPU tensors run
+    `batch_counts_reference`."""
+    global LAUNCHES
+    if src.device.type == "cpu":
+        return batch_counts_reference(nv, mv, lm, thr, src, dst, n_pad, bm)
+    counts = _launch("needle_diag_runs", nv, mv, lm, thr, src, dst, n_pad, bm)
+    if src.shape[0]:
+        LAUNCHES += 1
+    return counts
+
+
+def batch_counts_popc(nv, mv, lm, thr, src, dst, n_pad, bm=None):
+    """`batch_counts` by the previous design (needle_diag_runs_popc: one
+    thread per diagonal, a popcount per cell), on CUDA tensors only. Kept
+    as a yardstick for the kernel; the search never calls it."""
+    global LAUNCHES_POPC
+    counts = _launch("needle_diag_runs_popc", nv, mv, lm, thr, src, dst, n_pad, bm)
+    if src.shape[0]:
+        LAUNCHES_POPC += 1
+    return counts
+
+
+def pack_words(S: torch.Tensor) -> torch.Tensor:
+    """(P, n, d) bool match bits along rows -> (P, d, ceil(n / 32)) int64
+    words, bit r of word w = row 32 * w + r (rows past n read 0)."""
+    P, n, d = S.shape
+    n_words = -(-n // 32)
+    S = torch.cat([S, S.new_zeros((P, n_words * 32 - n, d))], dim=1)
+    weights = torch.tensor([1 << r for r in range(32)], dtype=torch.int64)
+    S = S.reshape(P, n_words, 32, d).to(torch.int64)
+    return (S * weights.to(S.device)[None, None, :, None]).sum(dim=2).transpose(1, 2)
+
+
+def match_words(nv, mv, thr, src, dst, n_pad, bm=None):
+    """The kernel's match bits as words: (chunk, n_tiles*512, n_pad/32 + 1)
+    int64, bit r of word w of diagonal d = cell (i, i + d - (n_pad - 1)) at
+    row i = 32 * w + r - 1 (words aligned to the mask blocks, which start at
+    row -1). A bit is set iff the cell matches (popcount <= thr), 1 <= i <
+    nv, 1 <= j < mv and its row block is allowed: validity and the masks'
+    flushes are already in the bits. Plain torch, small sizes only."""
+    chunk = src.shape[0]
+    n_out = n_tiles_for(n_pad) * D_TILE
+    if bm is None:
+        bm = torch.full((chunk, n_groups_for(n_pad)), int(full_block_mask(n_pad)),
+                        dtype=torch.int32)
+    i = torch.arange(-1, n_pad, dtype=torch.int64)  # rows -1 .. n_pad - 1
+    d = torch.arange(n_out, dtype=torch.int64)
+    j = i[:, None] + d[None, :] - (n_pad - 1)
+    shift = torch.clamp((i + 1) // D_TILE, max=31)
+    group = d // (G_TILES * D_TILE)
+    out = []
+    for p in range(chunk):
+        row_ok = (i >= 1) & (i < nv[p].item())
+        col_ok = (j >= 1) & (j < mv[p].item())
+        hit = popcount32(src[p, i.clamp(min=0)][:, None] ^ dst[p, j.clamp(0, n_pad - 1)])
+        allowed = ((bm[p, group][None, :].to(torch.int64) >> shift[:, None]) & 1) == 1
+        S = (hit <= thr[p].item()) & row_ok[:, None] & col_ok & allowed
+        out.append(pack_words(S[None])[0])
+    return torch.stack(out)
+
+
+def _leading_ones32(x: torch.Tensor) -> torch.Tensor:
+    """__clz(~x) of 32-bit words in int64: the high-order ones of x."""
+    v = ~x & 0xFFFFFFFF
+    for s in (1, 2, 4, 8, 16):
+        v = v | (v >> s)
+    return 32 - popcount32(v)
+
+
+def runs_from_words(words: torch.Tensor, l_min: torch.Tensor) -> torch.Tensor:
+    """Per-diagonal run counts from match words, by the kernel's word
+    operations (csrc/diag_runs.cu, runs_word), on int64.
+
+    words: (P, D, n_words) int64 in [0, 2**32), bit r of word w = row
+    32 * w + r of the diagonal's walk, with validity and mask flushes
+    applied (mismatches); l_min: (P,) run bound. Returns (P, D) int32: the
+    maximal runs of set bits at least max(l_min, 1) long."""
+    M = 0xFFFFFFFF
+    P, D, n_words = words.shape
+    L = l_min.to(torch.int64).clamp(min=1)[:, None].expand(P, D)
+    inside = L <= 30  # a run wholly inside a word is at most 30 long
+    Lw = torch.where(inside, L, 1)
+    run = torch.zeros((P, D), dtype=torch.int64, device=words.device)
+    cand = torch.zeros_like(run)
+    for w in range(n_words):
+        x = words[:, :, w]
+        full = x == M
+        inv = ~x & M
+        lo = popcount32(((inv & -inv) - 1) & M)  # __ffs(~x) - 1
+        hi = _leading_ones32(x)  # __clz(~x)
+        closed = (run + lo >= L).to(torch.int64)
+        z = x & ((M << lo) & M) & (M >> hi)
+        length = torch.ones_like(L)
+        for _ in range(5):  # the shift-and ladder, while 2 * len <= l_min
+            step = 2 * length <= Lw
+            z = torch.where(step, z & (z >> length), z)
+            length = torch.where(step, 2 * length, length)
+        z = z & (z >> (Lw - length))
+        inner = torch.where(inside, popcount32(z & ~(z << 1) & M), 0)
+        cand = cand + torch.where(full, 0, closed + inner)
+        run = torch.where(full, run + 32, hi)
+    cand = cand + (run >= L).to(torch.int64)
+    return cand.to(torch.int32)

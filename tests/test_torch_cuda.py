@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the hand-written count walk kernel (both of its
-stagings) against its plain PyTorch version, and the search engine, the
+"""The port on a CUDA card: the hand-written count walk kernel against its
+plain PyTorch version and against the previous design (batch_counts_popc),
+and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
 against the same code on the CPU or the numpy oracle. These tests need
 an NVIDIA GPU and nvcc; elsewhere they skip. This file imports no jax, so
@@ -29,22 +30,12 @@ def _t(a, device):
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
 
 
-@pytest.mark.parametrize(
-    "n_pad,chunk,blocked",
-    [(512, 5, False), (2560, 64, False), (7168, 3, False), (2560, 64, True),
-     (32768, 2, False)],
-)
-def test_kernel_equals_reference(dev, monkeypatch, n_pad, chunk, blocked):
-    """Exact on planted runs with nv/mv < n_pad, thr 0 and 10, l_min 1,
-    band masks with gaps, a padding lane, (at 7168) more than 48 KB of
-    shared memory, and the per-row-block staging: forced at 2560, and at
-    32768, a bucket whose rows do not fit in shared memory."""
+def _planted_operands(rng, n_pad, chunk, thr_values, lm_values):
+    """Random rows with one planted shared run (one flipped bit) per lane,
+    nv/mv < n_pad, band masks with gaps on every fourth lane from the
+    second, and a padding lane last."""
     from needle_tpu_torch.search import diag_runs as D
 
-    if blocked:
-        monkeypatch.setattr(D, "WHOLE_ROW_MAX_NPAD", 0)
-
-    rng = np.random.default_rng(n_pad + chunk)
     src = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
     dst = rng.integers(0, 2**32, size=(chunk, n_pad), dtype=np.uint32)
     for p in range(chunk):
@@ -54,20 +45,100 @@ def test_kernel_equals_reference(dev, monkeypatch, n_pad, chunk, blocked):
         dst[p, d0 + n // 3] ^= np.uint32(1)
     nv = rng.integers(n_pad // 2, n_pad + 1, size=chunk).astype(np.int32)
     mv = rng.integers(n_pad // 2, n_pad + 1, size=chunk).astype(np.int32)
-    thr = np.where(np.arange(chunk) % 2 == 0, 10, 0).astype(np.int32)
-    lm = np.where(np.arange(chunk) % 3 == 0, 1, 30).astype(np.int32)
+    thr = np.asarray(thr_values, np.int32)[np.arange(chunk) % len(thr_values)]
+    lm = np.asarray(lm_values, np.int32)[np.arange(chunk) % len(lm_values)]
     bm = np.full((chunk, D.n_groups_for(n_pad)), D.full_block_mask(n_pad), np.int32)
     bm[1::4] &= rng.integers(0, 2**31, size=bm[1::4].shape).astype(np.int32)
     lm[-1], bm[-1] = INT32_MAX, 0  # a padding lane
+    return nv, mv, lm, thr, src, dst, bm
+
+
+def _check_kernel(dev, nv, mv, lm, thr, src, dst, bm, n_pad):
+    """batch_counts on the card: one launch, exact against the plain version
+    and the previous design; returns the counts."""
+    from needle_tpu_torch.search import diag_runs as D
+
     args = [_t(a, dev) for a in (nv, mv, lm, thr, src, dst)] + [n_pad, _t(bm, dev)]
     before = D.LAUNCHES
     got = D.batch_counts(*args)
     torch.cuda.synchronize()
     assert D.LAUNCHES == before + 1
-    want = D.batch_counts_reference(*args)
-    assert torch.equal(got, want)
-    assert int((want > 0).sum()) > 0
+    assert torch.equal(got, D.batch_counts_reference(*args))
+    assert torch.equal(got, D.batch_counts_popc(*args))
+    return got
+
+
+@pytest.mark.parametrize(
+    "n_pad,chunk,thr_values,lm_values",
+    [(512, 5, (10, 0), (1, 30)), (2560, 64, (10, 0), (1, 30)),
+     (7168, 3, (10, 0), (1, 30)), (2560, 64, (16, 32, 10), (31, 32, 33, 64)),
+     (32768, 2, (10, 0), (1, 30))],
+)
+def test_kernel_equals_reference(dev, n_pad, chunk, thr_values, lm_values):
+    """Exact on planted runs with nv/mv < n_pad, thr 0 and 10, l_min 1,
+    band masks with gaps and a padding lane, at every size: 7168 (whose
+    rows took more than 48 KB of shared memory in the previous design) and
+    32768 (whose rows do not fit at all) go through the same tile-by-tile
+    staging as 512; at 2560 also thr 16 and 32 (a zero vector matches, so
+    only the validity predicate keeps invalid cells out) and l_min 31, 32,
+    33 and 64 (runs counted across word edges)."""
+    rng = np.random.default_rng(n_pad + chunk + len(thr_values))
+    ops = _planted_operands(rng, n_pad, chunk, thr_values, lm_values)
+    got = _check_kernel(dev, *ops, n_pad)
+    assert int((got > 0).sum()) > 0
     assert not got[-1].any()
+
+
+@pytest.mark.parametrize("thr", [16, 32])
+def test_kernel_short_lanes_at_high_thresholds(dev, thr):
+    """n_pad 512, thr 16 or 32: lanes with nv or mv of 0, 1 and 2 (nothing
+    or a single row valid), beside full lanes, every l_min of 1, 31, 32, 33
+    and 64; exact against the plain version and the previous design."""
+    rng = np.random.default_rng(thr)
+    n_pad = 512
+    nv, mv, lm, thr_a, src, dst, bm = _planted_operands(
+        rng, n_pad, 12, (thr,), (1, 31, 32, 33, 64))
+    nv[:6] = [0, 1, 2, 512, 512, 512]
+    mv[:6] = [512, 512, 512, 0, 1, 2]
+    got = _check_kernel(dev, nv, mv, lm, thr_a, src, dst, bm, n_pad)
+    assert not got[[0, 1, 3, 4]].any()
+    assert got[6:-1].any()
+
+
+def test_kernel_run_across_masked_gap(dev):
+    """A lane whose only run crosses a masked block: the part before the
+    gap counts (l_min 100 <= 1022 rows), the part after starts anew."""
+    from needle_tpu_torch.search import diag_runs as D
+
+    rng = np.random.default_rng(3)
+    n_pad = 2048
+    src = rng.integers(0, 2**32, size=(2, n_pad), dtype=np.uint32)
+    dst = rng.integers(0, 2**32, size=(2, n_pad), dtype=np.uint32)
+    dst[:, 1:] = src[:, 1:]  # the main diagonal matches on every row
+    nv = np.full(2, n_pad, np.int32)
+    lm = np.array([100, 600], np.int32)
+    thr = np.zeros(2, np.int32)
+    bm = np.full((2, D.n_groups_for(n_pad)), D.full_block_mask(n_pad), np.int32)
+    bm[:, 0] &= ~np.int32(1 << 2)  # block 2 (rows 1023..1534) masked
+    got = _check_kernel(dev, nv, nv, lm, thr, src, dst, bm, n_pad)
+    assert got[:, n_pad - 1].tolist() == [2, 1]  # 1022 and 513 rows
+
+
+def test_kernel_equals_previous_design(dev):
+    """batch_counts == batch_counts_popc on the season's shape (512 lanes
+    at n_pad 2560); the previous design is counted apart."""
+    from needle_tpu_torch.search import diag_runs as D
+
+    rng = np.random.default_rng(2560)
+    nv, mv, lm, thr, src, dst, bm = _planted_operands(
+        rng, 2560, 512, (10, 0), (1, 81))
+    args = [_t(a, dev) for a in (nv, mv, lm, thr, src, dst)] + [2560, _t(bm, dev)]
+    before, before_popc = D.LAUNCHES, D.LAUNCHES_POPC
+    got, prev = D.batch_counts(*args), D.batch_counts_popc(*args)
+    torch.cuda.synchronize()
+    assert (D.LAUNCHES, D.LAUNCHES_POPC) == (before + 1, before_popc + 1)
+    assert torch.equal(got, prev)
+    assert int((got > 0).sum()) >= 500
 
 
 def test_kernel_rejects_bad_operands(dev):
