@@ -11,7 +11,17 @@ the card, then drives the port's main path once: `analyze
 28-episode, 1200 s synthetic season (bench.py's default configuration:
 16 kHz mono WAV, 85 s opening at 5-40 s, 70 s ending, seed 20260816), and
 checks the result against the truth, the canonical host oracle and the
-numpy search engine. Then the library path:
+numpy search engine. On the same season:
+
+- profile: the CLI search again with NEEDLE_TPU_PROFILE set, whose
+  torch.profiler trace must hold the count walk's kernel events, and whose
+  stdout must equal the same search's unprofiled;
+- distributed: a world of one over NCCL (`parallel.distributed`):
+  `distributed_analyze` rewrites the season's `.needle.dat` files byte for
+  byte, and `distributed_search` returns the SearchResults of a
+  single-process search, which match the season's skip files.
+
+Then the library path:
 
 - long bucket: the count walk at n_pad 32,768 against its plain version
   and the previous design, and a 2-episode search whose sides bucket
@@ -470,6 +480,134 @@ def engine_phase(torch, np, paths):
         f"{len(res[0])} SearchResults equal to NumpySearchEngine")
 
 
+def profile_phase(torch, workdir: Path):
+    """`search --include-endings --device cuda` through the port's CLI,
+    unprofiled and then with NEEDLE_TPU_PROFILE set: one Chrome trace
+    written, holding the count walk's kernel events; equal stdout."""
+    import contextlib
+    import io
+
+    from needle_tpu_torch.cli import main
+    from needle_tpu_torch.search import diag_runs
+
+    argv = ["search", "--include-endings", "--device", "cuda", str(workdir)]
+
+    def search():
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if main(argv) != 0:
+                raise AssertionError("search failed")
+        torch.cuda.synchronize()
+        return out.getvalue(), time.perf_counter() - t0
+
+    plain, plain_s = search()
+    with tempfile.TemporaryDirectory(prefix="needle_profile_") as prof:
+        os.environ["NEEDLE_TPU_PROFILE"] = prof
+        diag_runs.LAUNCHES = 0
+        try:
+            profiled, profiled_s = search()
+        finally:
+            del os.environ["NEEDLE_TPU_PROFILE"]
+        launches = diag_runs.LAUNCHES
+        traces = sorted(Path(prof).iterdir())
+        if len(traces) != 1:
+            raise AssertionError(f"profile wrote {len(traces)} files, not 1")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+    if profiled != plain or "* Opening - \"" not in plain:
+        raise AssertionError("the profiled search's stdout differs")
+    walks = [e for e in events
+             if e.get("cat") == "kernel" and "diag_runs" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not walks or launches <= 0:
+        raise AssertionError(
+            f"the trace holds no count walk kernel events ({len(kernels)} "
+            f"kernel events; {launches} launches)")
+    walk_us = sum(e["dur"] for e in walks)
+    kernel_us = sum(e["dur"] for e in kernels)
+    # the search's own span (record_function) on the host's clock
+    span_us = max(e["dur"] for e in events if e.get("name") == "needle search")
+    log(f"profile: search wall {profiled_s:.3f} s profiled, {plain_s:.3f} s "
+        f"not; trace {traces[0].name} holds {len(walks)} count walk kernel "
+        f"events ({walk_us:.1f} us in all; {launches} launches) among "
+        f"{len(kernels)} kernel events ({kernel_us:.1f} us); the search's "
+        f"span {span_us:.1f} us, kernels {kernel_us / span_us:.4f} of it; "
+        f"stdout equal")
+
+
+def distributed_phase(torch, np, paths):
+    """A world of one over NCCL on local_device(): distributed_analyze
+    (force, persisted) rewrites the season's .needle.dat files byte for
+    byte; distributed_search returns a single-process search's results,
+    which are those the season phase wrote to its skip files."""
+    import socket
+
+    import torch.distributed
+
+    from needle_tpu_torch.analyzer import Analyzer
+    from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.constants import DEFAULT_HASH_DURATION
+    from needle_tpu_torch.data import FrameHashes, SkipFile
+    from needle_tpu_torch.duration import Duration
+    from needle_tpu_torch.parallel import distributed as dist
+    from needle_tpu_torch.parallel import local_device
+    from needle_tpu_torch.search import diag_runs
+
+    paths = sorted(paths)
+    dats = [p.with_suffix(".needle.dat") for p in paths]
+    season_dat = [d.read_bytes() for d in dats]
+    fhs = [FrameHashes.from_bytes(b) for b in season_dat]
+    single = Comparator(paths, device="cuda").with_include_endings(True)
+    want = [(r.opening, r.ending)
+            for r in single.run_with_frame_hashes(fhs, False, False, False)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.initialize(f"tcp://127.0.0.1:{port}", num_processes=1, process_id=0,
+                    device="cuda")
+    try:
+        device = local_device()
+        analyzer = Analyzer.from_files(paths, force=True, device=device)
+        analyzer.with_include_endings(True)
+        hd = Duration.from_secs_f32(np.float32(DEFAULT_HASH_DURATION))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = dist.distributed_analyze(analyzer, hd, persist=True)
+        torch.cuda.synchronize()
+        analyze_s = time.perf_counter() - t0
+        if len(local) != len(paths) or [d.read_bytes() for d in dats] != season_dat:
+            raise AssertionError("distributed_analyze's .needle.dat files differ")
+        cmp = Comparator(paths, device=device).with_include_endings(True)
+        diag_runs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = dist.distributed_search(
+            cmp, [FrameHashes.from_path(d) for d in dats])
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        launches = diag_runs.LAUNCHES
+    finally:
+        torch.distributed.destroy_process_group()
+    got = [(r.opening, r.ending) for r in res]
+    if got != want:
+        raise AssertionError("distributed_search != a single-process search")
+    def f32(span):  # as a skip file holds it: float32 seconds
+        return None if span is None else [np.float32(x) for x in span]
+
+    for p, (op, en) in zip(paths, got):
+        skip = SkipFile.read(p.with_suffix(".needle.skip.json"))
+        if (f32(skip.opening), f32(skip.ending)) != (
+                f32(None if op is None else [d.as_secs_f32() for d in op]),
+                f32(None if en is None else [d.as_secs_f32() for d in en])):
+            raise AssertionError(f"{p.name}: result != the season's skip file")
+    if launches <= 0:
+        raise AssertionError("distributed_search never launched the count walk")
+    log(f"distributed (NCCL, world of one, {device}): analyze {analyze_s:.3f} "
+        f"s, .needle.dat byte-identical; search {search_s:.3f} s, "
+        f"{launches} count walk launches, {len(got)} SearchResults equal to a "
+        f"single-process search and to the season's skip files")
+
+
 def _planted_pairs(np, rng, lanes, n_pad, nv_lo):
     """Random hash rows with one planted shared run of 100-400 hashes (one
     flipped bit) per lane, and valid lengths in [nv_lo, n_pad]."""
@@ -797,6 +935,8 @@ def main() -> int:
         )
         hash_phase(torch, np, paths)
         engine_phase(torch, np, paths)
+        profile_phase(torch, Path(tmp))
+        distributed_phase(torch, np, paths)
     long_bucket_phase(torch, np)
     library_phase(torch, np)
     with tempfile.TemporaryDirectory(prefix="needle_smoke_mono_") as tmp:

@@ -1,8 +1,20 @@
 """Analyzer on PyTorch: per-video decode -> fingerprint -> FrameHashes.
 
 Mirrors needle/src/audio/analyzer.rs, as needle_tpu/analyzer.py does; this
-is the port's own copy of it, with the fingerprint math on a torch device
-('cuda' or 'cpu'):
+is the port's own copy of it. The backend picks where the fingerprint math
+runs:
+
+  * "auto" (default) — on a torch device ('cuda' or 'cpu'), episodes
+    batched, by the two routes below.
+  * "numpy" — the NumPy pipeline (`fingerprint_numpy_stereo`) on the host.
+  * "chromaprint" — ctypes to a system libchromaprint
+    (`fingerprint.oracle`), bit-exact with that build; it raises where the
+    library is missing, with no fallback.
+
+needle_tpu's "jax" backend has no counterpart and is refused. "numpy" and
+"chromaprint" take needle_tpu's host route for every file: decode (WAV and
+raw PCM through the native resampler too) to 11025 Hz stereo, fingerprint
+one video per thread. The device routes of "auto":
 
   * Raw-PCM sources (WAV, .pcm, .raw) are read as memmaps at their own
     rate and go through `fingerprint.torch_impl.IngestDispatcher`:
@@ -13,7 +25,8 @@ is the port's own copy of it, with the fingerprint math on a torch device
     and fingerprinted by `fingerprint.torch_impl.fingerprint_batch` on the
     device.
 
-On both routes borderline hashes are rescanned exactly on the host.
+On both device routes borderline hashes are rescanned exactly on the
+host.
 
 Timestamp math replicates the reference exactly (analyzer.rs:286-318):
   delay = 28666 samples, item duration = 1365 samples (chromaprint TEST2),
@@ -85,11 +98,35 @@ CHROMAPRINT_DELAY = Duration.from_secs_f64(DELAY_SAMPLES / SAMPLE_RATE)
 CHROMAPRINT_ITEM_DURATION = Duration.from_secs_f64(ITEM_DURATION_SAMPLES / SAMPLE_RATE)
 
 
+def _fingerprint_backend(name: str):
+    """Resolve a host backend name to fn(stereo_interleaved_i16) -> uint32
+    array; None for "auto", the device routes."""
+    if name == "numpy":
+        from .fingerprint.numpy_impl import fingerprint_numpy_stereo
+
+        return fingerprint_numpy_stereo
+    if name == "chromaprint":
+        from .fingerprint.oracle import fingerprint_oracle
+
+        return lambda pcm: fingerprint_oracle(pcm, channels=2)
+    if name == "auto":
+        return None
+    if name == "jax":
+        raise ValueError(
+            "the jax backend is needle_tpu's; needle_tpu_torch fingerprints "
+            "with 'auto' on a torch device, or 'numpy' or 'chromaprint'"
+        )
+    raise ValueError(f"unknown fingerprint backend: {name}")
+
+
 class Analyzer:
     """Analyzes videos into FrameHashes (analyzer.rs:85-455) on a torch
-    device ('cuda' or 'cpu')."""
+    device ('cuda' or 'cpu'), or on the host with backend "numpy" or
+    "chromaprint"."""
 
-    def __init__(self, videos: Sequence = (), device: str = "cuda"):
+    def __init__(self, videos: Sequence = (), device: str = "cuda",
+                 backend: str = "auto"):
+        _fingerprint_backend(backend)  # refuses "jax" and unknown names
         self.videos: List[Path] = [Path(v) for v in videos]
         self.opening_search_percentage: float = (
             constants.DEFAULT_OPENING_SEARCH_PERCENTAGE
@@ -101,6 +138,7 @@ class Analyzer:
         self.threaded_decoding: bool = False
         self.force: bool = False
         self.device = device
+        self.backend_name = backend
 
     # -- builder API (analyzer.rs:108-151) ------------------------------------
 
@@ -133,17 +171,35 @@ class Analyzer:
         self.force = bool(v)
         return self
 
-    # -- host decode of compressed media ---------------------------------------
+    # -- host decode ------------------------------------------------------------
 
     def _decode_segments(
         self, path: Path
     ) -> Tuple[np.ndarray, Optional[np.ndarray], Duration, Optional[Duration]]:
-        """Decode the opening window and (optionally) the ending window of
-        a compressed media file.
+        """Decode the opening window and (optionally) the ending window.
 
         Returns (opening_pcm, ending_pcm, stream_duration, ending_seek_to),
         with PCM as S16 interleaved stereo @ 11025 Hz.
         """
+        if ingest.is_pcm_file(path):
+            pcm, duration_secs = ingest.load_pcm_as_chromaprint_input(path)
+            stream_duration = Duration.from_secs_f64(duration_secs)
+            opening_duration = stream_duration.mul_f32(
+                np.float32(self.opening_search_percentage)
+            )
+            n_open = int(opening_duration.as_secs_f64() * SAMPLE_RATE) * 2
+            opening_pcm = pcm[:n_open]
+            ending_pcm, seek_to = None, None
+            if self.include_endings:
+                seek_to = stream_duration.mul_f32(
+                    np.float32(1.0) - np.float32(self.ending_search_percentage)
+                )
+                # ms-truncated like the reference's seek (audio/util.rs:36-38)
+                # and the device-ingest path
+                n_skip = int((seek_to.as_millis() / 1000.0) * SAMPLE_RATE) * 2
+                ending_pcm = pcm[n_skip:]
+            return opening_pcm, ending_pcm, stream_duration, seek_to
+
         # First probe duration (cheap open), mirroring analyzer.rs:362-374.
         duration_secs = ingest.stream_duration_secs(path)
         return self._decode_segments_av(path, duration_secs)
@@ -263,24 +319,78 @@ class Analyzer:
 
     # -- runs --------------------------------------------------------------------
 
+    def _cached(self, path: Path, md5: str) -> Optional[FrameHashes]:
+        """The video's `.needle.dat` when it holds this header md5 and
+        force is off; None when the video must be analyzed."""
+        fhp = frame_hash_data_path(path)
+        if self.force or not fhp.exists():
+            return None
+        try:
+            data = FrameHashes.from_path(fhp)
+        except Exception:
+            return None
+        if data.md5() != md5:
+            return None
+        print(f"Skipping analysis for {path}...")
+        return data
+
     def run_single(
         self, path, hash_duration: Duration, persist: bool
     ) -> FrameHashes:
-        """analyzer.rs:326-420, through the same batched program."""
+        """analyzer.rs:326-420: on the host backend's route, or through the
+        same batched program as `run`."""
+        fp = _fingerprint_backend(self.backend_name)
+        if fp is not None:
+            return self._run_single_host(Path(path), fp, hash_duration, persist)
         return self._run_batched_block(
             [Path(path)], hash_duration, persist, threading=False
         )[0]
 
+    def _run_single_host(
+        self, path: Path, fp, hash_duration: Duration, persist: bool
+    ) -> FrameHashes:
+        """needle_tpu's host route: decode to 11025 Hz stereo, then `fp`."""
+        md5 = compute_header_md5sum(path)
+        cached = self._cached(path, md5)
+        if cached is not None:
+            return cached
+
+        opening_pcm, ending_pcm, _, seek_to = self._decode_segments(path)
+        oh, ot = self._hashes_with_timestamps(fp(opening_pcm), hash_duration, None)
+        if ending_pcm is not None:
+            eh, et = self._hashes_with_timestamps(
+                fp(ending_pcm), hash_duration, seek_to
+            )
+        else:
+            eh = np.zeros(0, np.uint32)
+            et = np.zeros(0, np.int64)
+
+        frame_hashes = FrameHashes(oh, ot, eh, et, hash_duration, md5)
+        if persist:
+            frame_hashes.save(frame_hash_data_path(path))
+        return frame_hashes
+
     def run(
         self, hash_duration: Duration, persist: bool, threading: bool = True
     ) -> List[FrameHashes]:
-        """analyzer.rs:425-455: every episode's windows are fingerprinted as
-        batched device dispatches, in streaming waves of STREAM_BLOCK."""
+        """analyzer.rs:425-455. On "auto" every episode's windows are
+        fingerprinted as batched device dispatches, in streaming waves of
+        STREAM_BLOCK; a host backend takes one video per thread."""
         if len(self.videos) == 0:
             raise AnalyzerMissingPaths()
         if isinstance(hash_duration, (int, float)):
             hash_duration = Duration.from_secs_f32(np.float32(hash_duration))
-        return self._run_batched(hash_duration, persist, threading)
+        if _fingerprint_backend(self.backend_name) is None:
+            return self._run_batched(hash_duration, persist, threading)
+        if threading and len(self.videos) > 1:
+            with ThreadPoolExecutor() as pool:
+                return list(
+                    pool.map(
+                        lambda p: self.run_single(p, hash_duration, persist),
+                        self.videos,
+                    )
+                )
+        return [self.run_single(p, hash_duration, persist) for p in self.videos]
 
     # Episodes per streaming wave: bounds host PCM memory for 1000+ episode
     # libraries.
@@ -317,15 +427,9 @@ class Analyzer:
             raw segments) or (md5, seek_to, has_ending, "decoded", (opening
             mono, ending mono or None))."""
             md5 = compute_header_md5sum(path)
-            fhp = frame_hash_data_path(path)
-            if not self.force and fhp.exists():
-                try:
-                    data = FrameHashes.from_path(fhp)
-                except Exception:
-                    data = None
-                if data is not None and data.md5() == md5:
-                    print(f"Skipping analysis for {path}...")
-                    return ("cached", data)
+            cached = self._cached(path, md5)
+            if cached is not None:
+                return ("cached", cached)
             if self._use_device_ingest(path):
                 segs = self._raw_segments(path)
                 return (md5, segs[6], segs[2] is not None, "raw", segs[:6])

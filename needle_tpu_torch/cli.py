@@ -3,9 +3,12 @@
 Mirrors needle/src/main.rs (clap v3 derive), as needle_tpu/cli.py does:
 identical subcommands, flag names, defaults, validation messages and
 output text, plus `--device {cuda,cpu}` on analyze and search (default
-cuda). needle_tpu's `--backend` and `--engine` select JAX-side
-implementations; they are parsed, and refused unless left at their
-default.
+cuda). needle_tpu's extensions keep their meaning: `analyze --backend
+numpy|chromaprint` fingerprints on the host, `search --engine numpy` runs
+the per-pair oracle engine, and `auto` (the default of both) runs on the
+torch device. Their `jax` value is refused with exit code 2.
+NEEDLE_TPU_PROFILE=<dir> writes a torch.profiler trace of analyze and of
+search there (`tracing.device_profile`).
 
     python -m needle_tpu_torch.cli analyze --include-endings SEASON_DIR
     python -m needle_tpu_torch.cli search --include-endings SEASON_DIR
@@ -25,6 +28,7 @@ from .comparator import Comparator
 from .duration import Duration
 from .errors import Error
 from .ingest import IngestError
+from .tracing import device_profile
 from .util import ffmpeg_version_string, find_video_files
 
 
@@ -248,8 +252,11 @@ def main(argv=None) -> int:
         return 0
 
     if args.command == "analyze":
-        if args.backend != "auto":
-            _error_exit("--backend is not supported by needle-tpu-torch; use --device")
+        if args.backend == "jax":
+            _error_exit(
+                "--backend jax is not supported by needle-tpu-torch; use "
+                "--device, or --backend numpy|chromaprint"
+            )
         # main.rs:196-241 validation
         if args.opening_search_percentage >= 1.0:
             _error_exit("opening_search_percentage must be less than 1.0")
@@ -260,7 +267,8 @@ def main(argv=None) -> int:
         videos = sorted(_find_videos(args, args.paths))
         analyzer = (
             Analyzer.from_files(
-                videos, args.threaded_decoding, args.force, device=args.device
+                videos, args.threaded_decoding, args.force,
+                device=args.device, backend=args.backend,
             )
             .with_opening_search_percentage(args.opening_search_percentage)
             .with_ending_search_percentage(args.ending_search_percentage)
@@ -268,14 +276,18 @@ def main(argv=None) -> int:
         )
         hash_duration = Duration.from_secs_f32(np.float32(args.hash_duration))
         try:
-            analyzer.run(hash_duration, True, not args.no_threading)
+            with device_profile("needle analyze", args.device):
+                analyzer.run(hash_duration, True, not args.no_threading)
         except (Error, IngestError) as e:
             _runtime_error_exit(str(e))
         return 0
 
     if args.command == "search":
-        if args.engine != "auto":
-            _error_exit("--engine is not supported by needle-tpu-torch; use --device")
+        if args.engine == "jax":
+            _error_exit(
+                "--engine jax is not supported by needle-tpu-torch; use "
+                "--device, or --engine numpy"
+            )
         if args.hash_match_threshold < 0 or args.min_opening_duration < 0 \
                 or args.min_ending_duration < 0:
             _error_exit("invalid value: thresholds and durations must be non-negative")
@@ -288,7 +300,7 @@ def main(argv=None) -> int:
                 f"{len(args.paths)} in provided video paths"
             )
         comparator = (
-            Comparator.from_files(videos, device=args.device)
+            Comparator.from_files(videos, device=args.device, engine=args.engine)
             .with_include_endings(args.include_endings)
             .with_hash_match_threshold(args.hash_match_threshold)
             .with_min_opening_duration(Duration.from_secs(args.min_opening_duration))
@@ -296,13 +308,14 @@ def main(argv=None) -> int:
             .with_time_padding(Duration.from_secs_f32(np.float32(args.time_padding)))
         )
         try:
-            comparator.run(
-                args.analyze,
-                not args.no_display,
-                args.use_skip_files,
-                args.write_skip_files,
-                not args.no_threading,
-            )
+            with device_profile("needle search", args.device):
+                comparator.run(
+                    args.analyze,
+                    not args.no_display,
+                    args.use_skip_files,
+                    args.write_skip_files,
+                    not args.no_threading,
+                )
         except (Error, IngestError) as e:
             _runtime_error_exit(str(e))
         return 0

@@ -121,11 +121,12 @@ _DST_MH = _op.attrgetter("dst_match_hash")
 class Comparator:
     """Compares two or more videos using FrameHashes (comparator.rs:73-104),
     searching on a torch device ('cuda' or 'cpu'). `engine="numpy"` selects
-    the per-pair oracle engine instead."""
+    the per-pair oracle engine instead; "auto", the CLI's default, is the
+    torch engine."""
 
     def __init__(self, videos: Sequence = (), device: str = "cuda",
                  engine: str = "torch"):
-        if engine not in ("torch", "numpy"):
+        if engine not in ("torch", "auto", "numpy"):
             raise ValueError(f"unknown search engine: {engine}")
         self.videos: List[Path] = [Path(v) for v in videos]
         self.include_endings: bool = False

@@ -10,4 +10,7 @@
     :mod:`~needle_tpu_torch.fingerprint.decimate` — the numpy fingerprint
     (`fingerprint_numpy`, the mono route's oracle), the chromaprint
     constants and the half-band taps: copies of needle_tpu's.
+    `fingerprint_numpy_stereo` is the `numpy` analyze backend.
+  * :mod:`needle_tpu_torch.fingerprint.oracle` — the ctypes binding of the
+    system libchromaprint: the `chromaprint` analyze backend.
 """

@@ -197,3 +197,10 @@ def merge_flag_ranges(flagged: np.ndarray, gap: int = 19):
         else:
             ranges.append([i, i + 1])
     return [(lo, hi) for lo, hi in ranges]
+
+
+def fingerprint_numpy_stereo(interleaved_i16: np.ndarray) -> np.ndarray:
+    """Stereo interleaved i16 @ 11025 Hz -> subfingerprints (downmix first),
+    matching how the reference feeds chromaprint (analyzer.rs:218, 263-275).
+    The `numpy` analyze backend."""
+    return fingerprint_numpy(downmix_stereo_i16(interleaved_i16))

@@ -7,12 +7,15 @@ repository's shared C++ library `native/needle_ingest.cpp`
 (libavformat/libavcodec/libswresample, built as
 `native/libneedle_ingest.so`), exposed over a C ABI. This module is the
 port's copy of what it uses of needle_tpu/ingest: probe, decode and the
-stream duration for compressed media. It reproduces the reference's decode
-semantics exactly (packet pts filtering, resample chain, seek behavior) so
-fingerprints and timestamps agree.
+stream duration for compressed media, and the host resampler
+(`resample_pcm_to_stereo`, `load_pcm_as_chromaprint_input`) of the
+`numpy` and `chromaprint` analyze backends. It reproduces the reference's
+decode semantics exactly (packet pts filtering, resample chain, seek
+behavior) so fingerprints and timestamps agree.
 
-The library is loaded lazily, on the first probe or decode: the raw-PCM
-readers (`read_wav`, `read_pcm_mmap`, `is_pcm_file`) need no FFmpeg.
+The library is loaded lazily, on the first probe, decode or resample: the
+raw-PCM readers (`read_wav`, `read_pcm_mmap`, `is_pcm_file`) need no
+FFmpeg.
 NEEDLE_TPU_INGEST_LIB points at another ABI-compatible build.
 """
 
@@ -117,6 +120,19 @@ def _load_native_locked() -> ctypes.CDLL:
         c.c_int,
     ]
     lib.ni_decode_audio.restype = c.c_int
+    lib.ni_resample_pcm.argtypes = [
+        c.c_void_p,
+        c.c_int64,
+        c.c_int,
+        c.c_int,
+        c.c_int,
+        c.c_int,
+        c.POINTER(c.POINTER(c.c_int16)),
+        c.POINTER(c.c_int64),
+        c.c_char_p,
+        c.c_int,
+    ]
+    lib.ni_resample_pcm.restype = c.c_int
     _lib = lib
     return _lib
 
@@ -224,6 +240,45 @@ def stream_duration_secs(path) -> float:
     # decode 0 seconds: end timestamp == seek0 -> loop exits immediately.
     _, dur = decode_audio(path, None, 0.0)
     return dur
+
+
+def resample_pcm_to_stereo(
+    pcm: np.ndarray, in_rate: int, channels: int, out_rate: int = 11025
+) -> np.ndarray:
+    """Resample arbitrary PCM (int16 or float32, interleaved) to S16
+    interleaved stereo via swresample — the same resampler family the
+    reference's decode chain uses. Returns a zero-copy adoption of a
+    native buffer (`_adopt_native_i16` ownership contract applies)."""
+    pcm = np.ascontiguousarray(pcm)
+    if pcm.dtype == np.int16:
+        fmt = 0
+    elif pcm.dtype == np.float32:
+        fmt = 1
+    else:
+        raise ValueError(f"unsupported PCM dtype {pcm.dtype}")
+    if pcm.ndim == 2:
+        channels = pcm.shape[1]
+        pcm = pcm.reshape(-1)
+    n_frames = pcm.size // channels
+    lib = load_native()
+    buf = ctypes.POINTER(ctypes.c_int16)()
+    n = ctypes.c_int64()
+    err = ctypes.create_string_buffer(512)
+    rc = lib.ni_resample_pcm(
+        pcm.ctypes.data_as(ctypes.c_void_p),
+        n_frames,
+        in_rate,
+        channels,
+        fmt,
+        out_rate,
+        ctypes.byref(buf),
+        ctypes.byref(n),
+        err,
+        len(err),
+    )
+    if rc != 0:
+        raise IngestError(err.value.decode(errors="replace"))
+    return _adopt_native_i16(buf, n.value)
 
 
 # ---------------------------------------------------------------------------
@@ -365,3 +420,21 @@ def read_pcm_mmap(
         rate, channels = raw_rate, raw_channels
     duration = (samples.size // channels) / rate
     return samples, rate, channels, duration
+
+
+def load_pcm_as_chromaprint_input(
+    path, raw_rate: int = 16000, raw_channels: int = 1, raw_dtype=np.int16
+) -> Tuple[np.ndarray, float]:
+    """Read a WAV or raw-PCM file and convert to S16 interleaved stereo at
+    11025 Hz (chromaprint's native input in the reference chain). Returns
+    (interleaved stereo i16, duration_secs of the source). The host route
+    of the `numpy` and `chromaprint` analyze backends."""
+    p = str(path).lower()
+    if p.endswith(".wav"):
+        samples, rate, channels = read_wav(path)
+    else:
+        samples = np.fromfile(path, dtype=raw_dtype)
+        rate, channels = raw_rate, raw_channels
+    duration = (samples.size // channels) / rate
+    out = resample_pcm_to_stereo(samples, rate, channels)
+    return out, duration

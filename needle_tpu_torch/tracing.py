@@ -1,5 +1,5 @@
-"""Structured tracing and span timing (copy of needle_tpu/tracing.py
-without its jax profiler hook).
+"""Structured tracing, span timing, and device profiling (the port's copy
+of needle_tpu/tracing.py, with its profiler hook on torch.profiler).
 
 The reference uses the `tracing` crate: spans around `process_frames`
 (analyzer.rs:164-165), `run` (analyzer.rs:332-333) and
@@ -11,6 +11,11 @@ CLI-installed FmtSubscriber at INFO (main.rs:255-259). Here:
     registry (the per-stage timing the reference lacks).
   * `install_cli_subscriber()` — CLI log setup mirroring the reference's
     INFO-level subscriber; NEEDLE_TPU_LOG=debug logs every span.
+  * `device_profile(label, device)` — wraps a region in a
+    `torch.profiler.profile` (CPU activity, plus CUDA on a card) when
+    NEEDLE_TPU_PROFILE=<dir> is set, and writes a Chrome trace of it there
+    (`<label>.<pid>.pt.trace.json`); the CLI wraps analyze and search in
+    it, as needle_tpu's does.
   * `metrics` / `report_metrics()` — per-stage wall-time accumulators,
     printed when NEEDLE_TPU_TIMINGS=1.
 
@@ -89,6 +94,45 @@ def install_cli_subscriber(level: int = logging.INFO) -> None:
         root.addHandler(handler)
     root.setLevel(
         logging.DEBUG if os.environ.get("NEEDLE_TPU_LOG") == "debug" else level
+    )
+
+
+@contextlib.contextmanager
+def device_profile(label: str = "needle_tpu_torch", device="cpu"):
+    """torch.profiler trace of a region, gated on NEEDLE_TPU_PROFILE=<dir>:
+    the region runs inside `record_function(label)`, and its Chrome trace
+    (kernels launched through ctypes included: the profiler records every
+    kernel of the process's CUDA context) is written to
+    <dir>/<label>.<pid>.pt.trace.json. `device` is where the region runs;
+    a cuda device adds the CUDA activity. Unset, it does nothing."""
+    profile_dir = os.environ.get("NEEDLE_TPU_PROFILE")
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        t1 = time.perf_counter()
+        with record_function(label):
+            yield
+        if on_card:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    os.makedirs(profile_dir, exist_ok=True)
+    name = "_".join(label.split()) or "profile"
+    path = os.path.join(profile_dir, f"{name}.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    # what the profiler costs around the region, for reading its walls
+    logger.info(
+        "device profile written to %s (region %.3f s; profiler start %.3f s, "
+        "stop and export %.3f s)", path, t2 - t1, t1 - t0,
+        time.perf_counter() - t2,
     )
 
 

@@ -1,7 +1,8 @@
 """The port's own copies of needle_tpu's host modules (needle_tpu_torch's
 duration, data, util, errors, constants, _shapes, search/oracle,
-fingerprint/{constants,decimate,numpy_impl,ingest_oracle}, testing,
-comparator, analyzer and cli) against the originals.
+fingerprint/{constants,decimate,numpy_impl,ingest_oracle,oracle}, ingest's
+host resampler, testing, comparator, analyzer and cli) against the
+originals.
 
 Each side builds its own objects from the same numpy inputs, made from
 seeds, and the comparison is exact: Durations as (secs, nanos), files
@@ -13,6 +14,7 @@ directly."""
 import contextlib
 import io
 import shutil
+import struct
 
 import numpy as np
 import pytest
@@ -30,6 +32,8 @@ import needle_tpu.fingerprint.constants as j_fconstants
 import needle_tpu.fingerprint.decimate as j_decimate
 import needle_tpu.fingerprint.ingest_oracle as j_ingest_oracle
 import needle_tpu.fingerprint.numpy_impl as j_numpy_impl
+import needle_tpu.fingerprint.oracle as j_fp_oracle
+import needle_tpu.ingest as j_ingest
 import needle_tpu.search.oracle as j_oracle
 import needle_tpu.testing as j_testing
 import needle_tpu.util as j_util
@@ -40,12 +44,14 @@ from needle_tpu_torch import constants as t_constants
 from needle_tpu_torch import data as t_data
 from needle_tpu_torch import duration as t_duration
 from needle_tpu_torch import errors as t_errors
+from needle_tpu_torch import ingest as t_ingest
 from needle_tpu_torch import testing as t_testing
 from needle_tpu_torch import util as t_util
 from needle_tpu_torch.fingerprint import constants as t_fconstants
 from needle_tpu_torch.fingerprint import decimate as t_decimate
 from needle_tpu_torch.fingerprint import ingest_oracle as t_ingest_oracle
 from needle_tpu_torch.fingerprint import numpy_impl as t_numpy_impl
+from needle_tpu_torch.fingerprint import oracle as t_fp_oracle
 from needle_tpu_torch.search import oracle as t_oracle
 
 STEP = 247619033  # ~0.248 s per hash, in ns
@@ -338,6 +344,67 @@ def test_fingerprint_numpy(kind, secs):
     stereo = np.stack([mono, mono[::-1]], axis=1).reshape(-1)
     assert np.array_equal(t_numpy_impl.downmix_stereo_i16(stereo),
                           j_numpy_impl.downmix_stereo_i16(stereo))
+
+
+@pytest.mark.parametrize("kind,secs", [("music", 7.0), ("noise", 3.5),
+                                       ("music", 0.1)])
+def test_fingerprint_numpy_stereo(kind, secs):
+    mono = _pcm(int(secs * 20), int(secs * 11025), kind)
+    stereo = np.stack([mono, _pcm(3, len(mono), "noise")], axis=1).reshape(-1)
+    got = t_numpy_impl.fingerprint_numpy_stereo(stereo)
+    want = j_numpy_impl.fingerprint_numpy_stereo(stereo)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels,secs", [(1, 6.0), (2, 4.5), (2, 0.05)])
+def test_chromaprint_oracle(channels, secs):
+    assert t_fp_oracle.available() == j_fp_oracle.available()
+    assert t_fp_oracle.ALGORITHM_TEST2 == j_fp_oracle.ALGORITHM_TEST2
+    assert t_fp_oracle._LIB_CANDIDATES == j_fp_oracle._LIB_CANDIDATES
+    if not t_fp_oracle.available():
+        pytest.skip("libchromaprint not installed")
+    pcm = _pcm(channels, int(secs * 11025) * channels, "music")
+    got = t_fp_oracle.fingerprint_oracle(pcm, channels)
+    want = j_fp_oracle.fingerprint_oracle(pcm, channels)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    t, j = t_fp_oracle.ChromaprintOracle(), j_fp_oracle.ChromaprintOracle()
+    half = len(pcm) // (2 * channels) * channels  # on a frame boundary
+    for ctx in (t, j):
+        ctx.start(11025, channels)
+        ctx.feed(pcm[:half])
+        ctx.feed(pcm[half:])
+        ctx.finish()
+    assert np.array_equal(t.get_raw_fingerprint(), j.get_raw_fingerprint())
+    t.close()
+    j.close()
+
+
+@pytest.mark.parametrize("name,rate,channels,dtype", [
+    ("a.wav", 16000, 1, np.int16), ("b.wav", 44100, 2, np.int16),
+    ("c.wav", 22050, 2, np.float32), ("d.pcm", 16000, 1, np.int16),
+])
+def test_host_resampler(tmp_path, name, rate, channels, dtype):
+    pcm = _pcm(rate, int(rate * 2.5) * channels, "music")
+    if dtype == np.float32:
+        pcm = (pcm / 32768.0).astype(np.float32)
+    got = t_ingest.resample_pcm_to_stereo(pcm, rate, channels)
+    want = j_ingest.resample_pcm_to_stereo(pcm, rate, channels)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    path = tmp_path / name
+    if name.endswith(".wav"):  # PCM16 (format 1) or float32 (format 3)
+        data = pcm.astype(pcm.dtype.newbyteorder("<")).tobytes()
+        fmt, width = (1, 2) if dtype == np.int16 else (3, 4)
+        path.write_bytes(
+            b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVEfmt "
+            + struct.pack("<IHHIIHH", 16, fmt, channels, rate,
+                          rate * channels * width, channels * width, 8 * width)
+            + b"data" + struct.pack("<I", len(data)) + data)
+    else:
+        pcm.astype("<i2").tofile(path)
+    (t_pcm, t_dur), (j_pcm, j_dur) = (t_ingest.load_pcm_as_chromaprint_input(path),
+                                      j_ingest.load_pcm_as_chromaprint_input(path))
+    assert t_dur == j_dur and len(t_pcm) > 0
+    assert t_pcm.dtype == j_pcm.dtype and np.array_equal(t_pcm, j_pcm)
 
 
 @pytest.mark.parametrize("design", [(28, 9.0), (3, 5.65), (5, 7.0)])

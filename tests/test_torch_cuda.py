@@ -2,7 +2,9 @@
 plain PyTorch version and against the previous design (batch_counts_popc),
 and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
-against the same code on the CPU or the numpy oracle. These tests need
+against the same code on the CPU or the numpy oracle; NEEDLE_TPU_PROFILE's
+trace of a search on the card, and `parallel.distributed` over NCCL as a
+world of one. These tests need
 an NVIDIA GPU and nvcc; elsewhere they skip. This file imports no jax, so
 on a machine with a card and without jax it runs as
 
@@ -248,3 +250,72 @@ def test_fingerprint_batch_on_card_equals_numpy(dev):
     vals, _ = T.classifier_values(monos[0], device="cuda")
     ref, _ = T.classifier_values(monos[0], device="cpu")
     assert np.max(np.abs(vals - ref)) < 5e-6
+
+
+def test_profile_on_card_holds_the_count_walk(dev, tmp_path, monkeypatch):
+    """NEEDLE_TPU_PROFILE on a card: the search's torch.profiler trace holds
+    the count walk's kernel events, though it is launched through ctypes."""
+    import json
+
+    from needle_tpu_torch.cli import main
+    from needle_tpu_torch.testing import make_synthetic_season
+
+    season = tmp_path / "season"
+    make_synthetic_season(season, num_episodes=3, episode_secs=60.0,
+                          opening_secs=12.0, opening_offset_range=(1.0, 4.0),
+                          seed=8)
+    monkeypatch.setenv("NEEDLE_TPU_ALLOW_AUDIO", "1")
+    assert main(["analyze", "--device", "cuda", str(season)]) == 0
+    monkeypatch.setenv("NEEDLE_TPU_PROFILE", str(tmp_path / "prof"))
+    assert main(["search", "--min-opening-duration", "5", "--device", "cuda",
+                 str(season)]) == 0
+    (trace,) = (tmp_path / "prof").iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "diag_runs" in e.get("name", "")
+               for e in events)
+    assert any(e.get("name") == "needle search" for e in events)
+
+
+def test_nccl_world_of_one(dev):
+    """parallel.distributed over NCCL with one process: the byte all-gather
+    round-trips, and distributed_search returns a single-process search's
+    results."""
+    import socket
+
+    import torch.distributed
+
+    import needle_tpu_torch.parallel.distributed as dist
+    from needle_tpu_torch.comparator import Comparator
+    from needle_tpu_torch.data import FrameHashes
+    from needle_tpu_torch.duration import Duration
+    from needle_tpu_torch.parallel import local_device
+
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, 2**32, size=120, dtype=np.uint32)
+    fhs = []
+    for e in range(3):
+        h = rng.integers(0, 2**32, size=600, dtype=np.uint32)
+        h[30 + 20 * e : 150 + 20 * e] = shared
+        ts = (2600090703 + np.arange(600) * 247619033).astype(np.int64)
+        fhs.append(FrameHashes(h, ts, np.zeros(0, np.uint32),
+                               np.zeros(0, np.int64), Duration.from_millis(300),
+                               f"{e:032x}"))
+    videos = [f"e{k}.mkv" for k in range(3)]
+    want = Comparator(videos, device="cuda").run_with_frame_hashes(
+        fhs, False, False, False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        assert dist.is_initialized() and dist.process_count() == 1
+        assert torch.distributed.get_backend() == "nccl"
+        assert dist._allgather_bytes(b"\x00needle") == [b"\x00needle"]
+        dist.barrier()
+        got = dist.distributed_search(
+            Comparator(videos, device=local_device()), fhs)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert [(r.opening, r.ending) for r in got] == [
+        (r.opening, r.ending) for r in want]
+    assert all(r.opening is not None for r in got)
