@@ -19,7 +19,15 @@ numpy search engine. On the same season:
 - distributed: a world of one over NCCL (`parallel.distributed`):
   `distributed_analyze` rewrites the season's `.needle.dat` files byte for
   byte, and `distributed_search` returns the SearchResults of a
-  single-process search, which match the season's skip files.
+  single-process search, which match the season's skip files;
+- capi: the port's C API (`needle_tpu_torch.capi`, capi/needle_tpu.h) and
+  the unedited capi/examples programs are built; `full` analyzes and
+  searches a copy of the season as a C program on the card, writing the
+  `.needle.dat` and skip files the port's CLI writes on another copy; in
+  this process, through ctypes, the C API's search launches the count walk
+  kernel as often as the season search did;
+- parity: `needle_tpu_torch.parity` (tools/hw_parity.py's harness) on the
+  card, every route and leg, must pass; its JSON is logged.
 
 Then the library path:
 
@@ -608,6 +616,196 @@ def distributed_phase(torch, np, paths):
         f"single-process search and to the season's skip files")
 
 
+def _capi_library(lib_path):
+    """ctypes binding of the C API library, argtypes and restypes set for
+    the functions the capi phase calls."""
+    import ctypes
+
+    P, S, B, U16, F = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_bool,
+                       ctypes.c_uint16, ctypes.c_float)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in (
+        ("needle_error_to_str", [ctypes.c_int]),
+        ("needle_audio_analyzer_new_default", [P, S, P]),
+        ("needle_audio_analyzer_new", [P, S, F, F, B, B, B, P]),
+        ("needle_audio_analyzer_run", [P, F, B, B]),
+        ("needle_audio_analyzer_free", [P]),
+        ("needle_audio_comparator_new_default", [P, S, P]),
+        ("needle_audio_comparator_new", [P, S, B, U16, U16, U16, F, P]),
+        ("needle_audio_comparator_run", [P, B, B, B, B, B]),
+        ("needle_audio_comparator_free", [P]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "needle_error_to_str" else (
+            None if name.endswith("_free") else ctypes.c_int)
+    return lib
+
+
+def capi_phase(torch, np, paths, workdir: Path, season_launches):
+    """The port's C API (capi/needle_tpu.h served by needle_tpu_torch) on
+    the card. The library and capi/examples/{analyzer,comparator,full}.c
+    are built from the checkout; `full` runs as a C program on a fresh
+    copy of the season (NEEDLE_TPU_TORCH_DEVICE unset: the card) and must
+    write the `.needle.dat` and skip files the port's CLI writes on another
+    copy with full.c's settings (hash duration 0.3 s, no endings). Then,
+    in this process through ctypes, analyze and search the season with
+    endings: the search launches the count walk kernel as often as the
+    season phase's did. And needle_tpu's error codes for bad arguments."""
+    import contextlib
+    import ctypes
+    import io
+
+    from needle_tpu_torch import capi
+    from needle_tpu_torch.cli import main
+    from needle_tpu_torch.search import diag_runs
+
+    t0 = time.perf_counter()
+    lib_path = capi.build()
+    programs = {n: capi.build_example(n, workdir / "capi_bin")
+                for n in ("analyzer", "comparator", "full")}
+    log(f"capi: {lib_path.name} and {len(programs)} example programs built "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    paths = sorted(paths)
+    copies = []
+    for name in ("capi_season", "cli_season"):
+        d = workdir / name
+        d.mkdir()
+        for p in paths:
+            os.link(p, d / p.name)  # the WAVs only: outputs start afresh
+        copies.append(d)
+    ours, theirs = copies
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("NEEDLE_TPU_TORCH_DEVICE", "NEEDLE_TPU_PYTHON_ROOT")}
+    env["NEEDLE_TPU_ALLOW_AUDIO"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [str(programs["full"]), *(str(ours / p.name) for p in paths)],
+        capture_output=True, text=True, env=env, timeout=600,
+    )
+    full_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"capi full exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    openings = [line for line in proc.stdout.splitlines()
+                if line.startswith("* Opening - ")]
+    if f"found {len(paths)} videos" not in proc.stdout or not openings:
+        raise AssertionError(f"capi full's stdout:\n{proc.stdout[-2000:]}")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if (main(["analyze", "--device", "cuda", str(theirs)]) != 0
+                or main(["search", "--write-skip-files", "--device", "cuda",
+                         str(theirs)]) != 0):
+            raise AssertionError("the port's CLI failed on the season copy")
+    cli_s = time.perf_counter() - t0
+
+    def outputs(d):
+        return {p.name: p.read_bytes() for p in sorted(d.glob("*.needle*"))}
+
+    got, want = outputs(ours), outputs(theirs)
+    dats = [n for n in got if n.endswith(".needle.dat")]
+    skips = [n for n in got if n.endswith(".needle.skip.json")]
+    if got != want or len(dats) != len(paths) or len(skips) != len(paths):
+        differ = sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))
+        raise AssertionError(
+            f"capi full: {len(dats)} .needle.dat and {len(skips)} skip files; "
+            f"differing from the port's CLI: {differ[:8]}")
+    log(f"capi full (C program, card): {len(paths)} videos analyzed and "
+        f"searched in {full_s:.3f} s (interpreter start and CUDA set-up "
+        f"included); {len(dats)} .needle.dat and {len(skips)} skip files "
+        f"byte-identical to the port's CLI (analyze + search "
+        f"--write-skip-files, {cli_s:.3f} s), {len(openings)} openings shown")
+
+    lib = _capi_library(lib_path)
+    arr = (ctypes.c_char_p * len(paths))(*(str(p).encode() for p in paths))
+    handle = ctypes.c_void_p()
+    rc = lib.needle_audio_analyzer_new(arr, len(paths), 0.5, 0.25, True, False,
+                                       True, ctypes.byref(handle))
+    if rc != 0:
+        raise AssertionError(f"needle_audio_analyzer_new: {rc}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = lib.needle_audio_analyzer_run(handle, 0.3, False, True)
+    torch.cuda.synchronize()
+    analyze_s = time.perf_counter() - t0
+    lib.needle_audio_analyzer_free(handle)
+    if rc != 0:
+        raise AssertionError(f"needle_audio_analyzer_run: "
+                             f"{lib.needle_error_to_str(rc).decode()}")
+    rc = lib.needle_audio_comparator_new(arr, len(paths), True, 10, 20, 20, 0.0,
+                                         ctypes.byref(handle))
+    if rc != 0:
+        raise AssertionError(f"needle_audio_comparator_new: {rc}")
+    diag_runs.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = lib.needle_audio_comparator_run(handle, False, False, False, False, True)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = diag_runs.LAUNCHES
+    lib.needle_audio_comparator_free(handle)
+    if rc != 0:
+        raise AssertionError(f"needle_audio_comparator_run: "
+                             f"{lib.needle_error_to_str(rc).decode()}")
+    if launches != season_launches or launches <= 0:
+        raise AssertionError(
+            f"the C API's search launched the count walk {launches} times, "
+            f"the season search {season_launches}")
+
+    # needle_tpu's error codes (tests/test_capi.py), and an unknown device
+    out = ctypes.c_void_p()
+    one = (ctypes.c_char_p * 1)(b"/tmp/a.mkv")
+    two = (ctypes.c_char_p * 2)(b"/tmp/a.mkv", b"/tmp/b.mkv")
+    codes = [
+        lib.needle_audio_analyzer_new_default(None, 0, None),
+        lib.needle_audio_comparator_new_default(one, 1, ctypes.byref(out)),
+        lib.needle_audio_comparator_new(two, 2, False, 33, 20, 20, 0.0,
+                                        ctypes.byref(out)),
+    ]
+    os.environ["NEEDLE_TPU_TORCH_DEVICE"] = "tpu"
+    try:
+        codes.append(lib.needle_audio_comparator_new_default(
+            two, 2, ctypes.byref(out)))
+    finally:
+        del os.environ["NEEDLE_TPU_TORCH_DEVICE"]
+    strings = {lib.needle_error_to_str(c) for c in range(12)}
+    if codes != [2, 7, 3, 3] or len(strings) != 12:
+        raise AssertionError(f"capi error codes {codes}, {len(strings)} strings")
+    log(f"capi in-process (ctypes, card): analyze {analyze_s:.3f} s, search "
+        f"{search_s:.3f} s with endings, {launches} count walk launches "
+        f"(the season search's {season_launches}); error codes {codes}")
+
+
+def parity_phase(torch):
+    """needle_tpu_torch.parity on the card with every route and leg at its
+    defaults (trials 6, eps seconds 120): RunEntry-exact on every route under the
+    kernel, its previous design and the plain version; value errors under
+    half the margin; hashes bit-exact on both ingest routes."""
+    from needle_tpu_torch import parity
+    from needle_tpu_torch.search import diag_runs
+
+    diag_runs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = parity.run(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = diag_runs.LAUNCHES
+    log(f"parity: {json.dumps(out)}")
+    kernel_walks = sum(r["launches"]["kernel"] for r in out["routes"].values())
+    if not out["ok"] or sorted(out["routes"]) != sorted(parity.ROUTES):
+        raise AssertionError("the parity harness failed")
+    if launches <= 0 or launches != kernel_walks:
+        raise AssertionError(f"parity: {launches} kernel launches, "
+                             f"{kernel_walks} walks by the kernel")
+    log(f"parity harness: {out['pair_infos_checked']} pair infos exact on "
+        f"{len(out['routes'])} routes x {out['kernels']} in {wall:.3f} s; "
+        f"{launches} count walk launches; value error "
+        f"{out['eps_max_value_err']:.3e} (mono), "
+        f"{out['ingest_eps_max_value_err']:.3e} (ingest)")
+
+
 def _planted_pairs(np, rng, lanes, n_pad, nv_lo):
     """Random hash rows with one planted shared run of 100-400 hashes (one
     flipped bit) per lane, and valid lengths in [nv_lo, n_pad]."""
@@ -937,6 +1135,8 @@ def main() -> int:
         engine_phase(torch, np, paths)
         profile_phase(torch, Path(tmp))
         distributed_phase(torch, np, paths)
+        capi_phase(torch, np, paths, Path(tmp), launches)
+        parity_phase(torch)
     long_bucket_phase(torch, np)
     library_phase(torch, np)
     with tempfile.TemporaryDirectory(prefix="needle_smoke_mono_") as tmp:

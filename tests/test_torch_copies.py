@@ -346,6 +346,18 @@ def test_fingerprint_numpy(kind, secs):
                           j_numpy_impl.downmix_stereo_i16(stereo))
 
 
+@pytest.mark.parametrize("kind,secs", [("music", 8.0), ("noise", 5.5),
+                                       ("music", 0.15)])
+def test_classifier_values_oracle(kind, secs):
+    mono = _pcm(int(secs * 30), int(secs * 11025), kind)
+    got = t_numpy_impl.classifier_values_oracle(mono)
+    want = j_numpy_impl.classifier_values_oracle(mono)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+    assert len(want[0]) > 0 or secs < 1
+
+
 @pytest.mark.parametrize("kind,secs", [("music", 7.0), ("noise", 3.5),
                                        ("music", 0.1)])
 def test_fingerprint_numpy_stereo(kind, secs):

@@ -3,8 +3,8 @@ plain PyTorch version and against the previous design (batch_counts_popc),
 and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
 against the same code on the CPU or the numpy oracle; NEEDLE_TPU_PROFILE's
-trace of a search on the card, and `parallel.distributed` over NCCL as a
-world of one. These tests need
+trace of a search on the card, `parallel.distributed` over NCCL as a
+world of one, and the parity harness on every route. These tests need
 an NVIDIA GPU and nvcc; elsewhere they skip. This file imports no jax, so
 on a machine with a card and without jax it runs as
 
@@ -319,3 +319,19 @@ def test_nccl_world_of_one(dev):
     assert [(r.opening, r.ending) for r in got] == [
         (r.opening, r.ending) for r in want]
     assert all(r.opening is not None for r in got)
+
+
+def test_parity_harness_on_card(dev):
+    """needle_tpu_torch.parity on the card: every route (walk-all, band by
+    episode tiles and per pair, the pair prefilter at n_pad 16,384, direct
+    flagging) taken and RunEntry-exact under the kernel, its previous
+    design and the plain version; value errors and hashes hold."""
+    from needle_tpu_torch import parity
+
+    out = parity.run(["--device", "cuda", "--trials", "2", "--eps-seconds", "10"])
+    assert out["ok"], out
+    assert out["kernels"] == ["kernel", "previous", "plain"]
+    assert sorted(out["routes"]) == sorted(parity.ROUTES)
+    for route, r in out["routes"].items():
+        assert r["exact"] and r["taken"], (route, r)
+    assert out["routes"]["pair"]["launches"]["kernel"] > 0

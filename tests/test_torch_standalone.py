@@ -1,13 +1,15 @@
 """needle_tpu_torch stands alone: no module of the port, and not
 chip_smoke.py, imports jax or any module of needle_tpu.
 
-(a) scans the source of every module, imports inside functions included;
-(b) and (c) import the port, and chip_smoke.py, in a fresh interpreter
-whose import system refuses jax, jaxlib, needle_tpu and needle_tpu.*, and
-(b) runs analyze and search end to end there."""
+(a) scans the source of every module, imports inside functions included
+(nor may they import the repo's tools/), and the C API's C++ source for
+the modules it imports; (b) and (c) import the port, and chip_smoke.py, in
+a fresh interpreter whose import system refuses jax, jaxlib, needle_tpu
+and needle_tpu.*, and (b) runs analyze and search end to end there."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -53,7 +55,7 @@ def test_sources_import_nothing_of_needle_tpu_or_jax():
         n_modules += 1
         tree = ast.parse(path.read_text(), filename=str(path))
         for line, module in _imports(tree):
-            if _forbidden(module):
+            if _forbidden(module) or module.split(".")[0] == "tools":
                 bad.append(f"{path.relative_to(REPO)}:{line}: {module}")
     assert n_modules > 20
     assert not bad, "\n".join(bad)
@@ -66,6 +68,16 @@ def test_sources_import_nothing_of_needle_tpu_or_jax():
     assert [m for _, m in _imports(probe) if _forbidden(m)] == [
         "needle_tpu.data", "jax.numpy"
     ]
+
+
+def test_capi_source_imports_only_the_port():
+    """The C API's C++ source imports needle_tpu_torch, by that literal
+    name, and nothing else; it includes the header read-only."""
+    src = (REPO / "needle_tpu_torch" / "capi" / "needle_tpu_torch_capi.cpp").read_text()
+    calls = re.findall(r"PyImport_\w+\(([^)]*)\)", src)
+    assert calls and set(calls) == {'"needle_tpu_torch"'}, calls
+    includes = re.findall(r'#include\s+"([^"]+)"', src)
+    assert includes == ["needle_tpu.h"], includes
 
 
 _BLOCKER = '''
