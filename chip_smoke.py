@@ -290,6 +290,11 @@ def season_phase(torch, np, workdir: Path):
     log(f"season walls: analyze {analyze_s:.3f} s, search {search_s:.3f} s; "
         f"count walk launches {launches}")
     log(f"stage seconds: {json.dumps(stages)}")
+    # the rescan runs on a worker during the reads; only its wait is exposed
+    log("season analyze, rescan overlap: " + json.dumps(
+        {k: stages.get(k, 0.0) for k in (
+            "analyze.decode", "analyze.fingerprint", "ingest.rescan",
+            "ingest.rescan_wait")}))
     if launches <= 0:
         raise AssertionError("the search never launched the count walk kernel")
     from needle_tpu_torch.data import FrameHashes

@@ -418,8 +418,9 @@ class Analyzer:
         threading: bool,
     ) -> List[FrameHashes]:
         """One wave: threaded reads and decodes -> lane-chunk dispatches as
-        they fill -> assembly/persist. Cache semantics identical to
-        needle_tpu's."""
+        they fill, each chunk's borderline hashes rescanned on a worker
+        thread meanwhile (inline at the end without `threading`) ->
+        assembly/persist. Cache semantics identical to needle_tpu's."""
         from .tracing import span
 
         def prepare(path):
@@ -461,7 +462,7 @@ class Analyzer:
             d = dispatchers.get((rate, channels))
             if d is None:
                 d = dispatchers[(rate, channels)] = IngestDispatcher(
-                    rate, channels, self.device
+                    rate, channels, self.device, threading
                 )
             d.add((vi, "opening"), op_seg, op_nv)
             if en_seg is not None:

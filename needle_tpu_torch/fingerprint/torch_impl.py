@@ -27,6 +27,7 @@ inside the margin.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence
 
 import numpy as np
@@ -290,14 +291,20 @@ def ingest_fingerprint_batched(
 class IngestDispatcher:
     """Raw-PCM ingest on one device. add() records segments (memmap views
     are fine: no bytes move yet); a chunk of LANES segments of one frame
-    bucket is uploaded and dispatched as soon as it fills; finish() flushes
-    partial chunks, downloads every output, rescans the borderline hashes
-    on the host and returns ref -> uint32 hashes."""
+    bucket is uploaded and dispatched as soon as it fills, and its outputs
+    are queued for download. With `threading`, one worker thread collects
+    each dispatched chunk and rescans its borderline hashes on the host
+    while the caller goes on adding segments; finish() flushes the partial
+    chunks to it too, waits for it and returns ref -> uint32 hashes.
+    Without it, finish() collects and rescans every chunk itself, in
+    order."""
 
-    def __init__(self, in_rate: int, channels: int = 1, device="cuda"):
+    def __init__(self, in_rate: int, channels: int = 1, device="cuda",
+                 threading: bool = True):
         self.device = resolve_device(device)
         self.in_rate = in_rate
         self.channels = channels
+        self.threading = threading
         # the canonical band-limited decimation to >= 8 kHz runs on the
         # device; only factors 2 and 4 have half-band kernels, other rates
         # resample directly
@@ -309,11 +316,10 @@ class IngestDispatcher:
         ).to(self.device)
         self._tables = _device_tables(self.device)
         self._pending: dict = {}  # nf_bucket -> (refs, [(segment, n_valid)])
-        self._launched: list = []  # (refs, device outputs)
+        self._chunks: list = []  # (chunk, its worker's future or None)
+        self._pool = None  # the worker, started by the first chunk
         self._out_lens: dict = {}  # ref -> n_sub
         self._empty: dict = {}  # ref -> empty result
-        # the rescan needs each lane's raw segment again
-        self._rescan_info: dict = {}  # ref -> (segment, n_valid, nf_bucket)
 
     def lane_geometry(self, n_valid: int):
         """(n_sub, frame bucket) of a segment with n_valid interleaved
@@ -336,7 +342,6 @@ class IngestDispatcher:
             self._empty[ref] = np.zeros(0, np.uint32)
             return
         self._out_lens[ref] = n_sub
-        self._rescan_info[ref] = (segment, n_valid, nf_b)
         refs, segs = self._pending.setdefault(nf_b, ([], []))
         refs.append(ref)
         segs.append((segment, n_valid))
@@ -367,44 +372,58 @@ class IngestDispatcher:
                 raw, nv_d, self._rs_mat, self._tables, self.mid_rate,
                 self.channels, nf_b, self.dec_factor, with_flags=True,
             )
-        self._launched.append((refs, out))
+        # the rescan needs each lane's raw segment again
+        lanes = [(ref, self._out_lens[ref], s, n_valid)
+                 for ref, (s, n_valid) in zip(refs, segs)]
+        chunk = (lanes, nf_b, *self._download(out))
+        future = None
+        if self.threading:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="needle-rescan")
+            future = self._pool.submit(self._collect_and_rescan, *chunk)
+        self._chunks.append((chunk, future))
 
-    def finish(self) -> dict:
-        """Flush partial chunks, collect everything. Returns ref->hashes."""
-        from ..tracing import span
+    def _download(self, out):
+        """(hashes, flag_rows, event): on a card, the outputs' copy into
+        pinned host memory, enqueued behind the chunk's kernels, and the
+        event that marks its end; on the CPU the outputs as they are. (A
+        blocking copy made later from the worker would also wait for every
+        chunk dispatched after this one.)"""
+        if self.device.type != "cuda":
+            return (*out, None)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in out]
+        event = torch.cuda.Event()
+        event.record()
+        return (*host, event)
 
-        for nf_b in list(self._pending):
-            self._dispatch(nf_b)
-        results = dict(self._empty)
-        flags = {}
-        with span("ingest.collect"):
-            for refs, (hashes, flag_rows) in self._launched:
-                hashes = hashes.cpu().numpy()
-                flag_rows = flag_rows.cpu().numpy()
-                for r, ref in enumerate(refs):
-                    n = self._out_lens[ref]
-                    results[ref] = hashes[r, :n].astype(np.uint32)
-                    flags[ref] = flag_rows[r, :n]
-        self._rescan(results, flags)
-        self._launched, self._pending, self._empty = [], {}, {}
-        self._rescan_info = {}
-        return results
-
-    def _rescan(self, results: dict, flags: dict) -> None:
-        """Recompute borderline-flagged hashes with the canonical host
-        oracle, in place."""
+    def _collect_and_rescan(self, lanes, nf_b, hashes, flag_rows,
+                            event) -> dict:
+        """One chunk's ref -> uint32 hashes: its outputs cut to each lane's
+        n_sub, the borderline-flagged ones recomputed with the canonical
+        host oracle."""
         from ..tracing import span
 
         from .ingest_oracle import ingest_hashes_ranges_oracle
 
+        with span("ingest.collect"):
+            if event is not None:
+                event.synchronize()
+            hashes = hashes.numpy()
+            flag_rows = flag_rows.numpy()
+            results, flags = {}, {}
+            for r, (ref, n, _, _) in enumerate(lanes):
+                results[ref] = hashes[r, :n].astype(np.uint32)
+                flags[ref] = flag_rows[r, :n]
         total = sum(int(f.sum()) for f in flags.values())
         if not total:
-            return
+            return results
         with span("ingest.rescan", flagged=total):
-            for ref, f in flags.items():
+            for ref, _, segment, n_valid in lanes:
+                f = flags[ref]
                 if not f.any():
                     continue
-                segment, n_valid, nf_b = self._rescan_info[ref]
                 ranges = merge_flag_ranges(np.nonzero(f)[0])
                 outs = ingest_hashes_ranges_oracle(
                     segment, n_valid, self.in_rate, self.channels,
@@ -412,6 +431,27 @@ class IngestDispatcher:
                 )
                 for (lo, hi), o in zip(ranges, outs):
                     results[ref][lo:hi] = o
+        return results
+
+    def finish(self) -> dict:
+        """Flush partial chunks, collect everything. Returns ref->hashes;
+        an error in the worker is raised here."""
+        from ..tracing import span
+
+        for nf_b in list(self._pending):
+            self._dispatch(nf_b)
+        results = dict(self._empty)
+        try:
+            with span("ingest.rescan_wait"):
+                for chunk, future in self._chunks:
+                    results.update(self._collect_and_rescan(*chunk)
+                                   if future is None else future.result())
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(cancel_futures=True)
+            self._pool, self._chunks, self._pending, self._empty = (
+                None, [], {}, {})
+        return results
 
 
 def fingerprint_ingest_batch(

@@ -195,6 +195,31 @@ def test_ingest_on_card_equals_oracle(dev):
         assert np.max(np.abs(vals - ref)) < 5e-6
 
 
+def test_ingest_rescan_worker_on_card(dev, monkeypatch):
+    """Chunks downloaded through pinned memory and rescanned on the worker
+    while later chunks run: with every hash flagged, the card's hashes
+    equal the inline (threading=False) path's and the oracle's."""
+    from needle_tpu_torch.fingerprint import ingest_oracle as O
+    from needle_tpu_torch.fingerprint import torch_impl as T
+
+    monkeypatch.setattr(T, "LANES", 2)
+    monkeypatch.setenv("NEEDLE_TPU_EXACT_EPS", "1e30")
+    rng = np.random.default_rng(13)
+    segs = [(rng.standard_normal(16000 * s) * 6000).astype(np.int16)
+            for s in (5, 25, 6, 25, 9)]
+    got = T.fingerprint_ingest_batch(segs, 16000, 1, device="cuda")
+    d = T.IngestDispatcher(16000, 1, "cuda", threading=False)
+    for i, s in enumerate(segs):
+        d.add(i, s)
+    inline = d.finish()
+    for i, s in enumerate(segs):
+        n_sub, nf_b = d.lane_geometry(len(s))
+        want = O.ingest_hashes_full_oracle(s, len(s), 16000, 1, d.dec_factor,
+                                           nf_b, n_sub)
+        np.testing.assert_array_equal(got[i], want)
+        np.testing.assert_array_equal(inline[i], want)
+
+
 def test_prefilter_on_card_equals_cpu(dev, monkeypatch):
     """Direct items, band masks (episode tiles and per pair) and the pair
     prefilter on the card equal the same calls on the CPU."""
