@@ -376,21 +376,26 @@ class Analyzer:
         """analyzer.rs:425-455. On "auto" every episode's windows are
         fingerprinted as batched device dispatches, in streaming waves of
         STREAM_BLOCK; a host backend takes one video per thread."""
+        from .tracing import carry, pass_span
+
         if len(self.videos) == 0:
             raise AnalyzerMissingPaths()
         if isinstance(hash_duration, (int, float)):
             hash_duration = Duration.from_secs_f32(np.float32(hash_duration))
-        if _fingerprint_backend(self.backend_name) is None:
-            return self._run_batched(hash_duration, persist, threading)
-        if threading and len(self.videos) > 1:
-            with ThreadPoolExecutor() as pool:
-                return list(
-                    pool.map(
-                        lambda p: self.run_single(p, hash_duration, persist),
-                        self.videos,
+        with pass_span("analyze", videos=len(self.videos)):
+            if _fingerprint_backend(self.backend_name) is None:
+                return self._run_batched(hash_duration, persist, threading)
+            if threading and len(self.videos) > 1:
+                with ThreadPoolExecutor() as pool:
+                    return list(
+                        pool.map(
+                            carry(lambda p: self.run_single(
+                                p, hash_duration, persist)),
+                            self.videos,
+                        )
                     )
-                )
-        return [self.run_single(p, hash_duration, persist) for p in self.videos]
+            return [self.run_single(p, hash_duration, persist)
+                    for p in self.videos]
 
     # Episodes per streaming wave: bounds host PCM memory for 1000+ episode
     # libraries.
@@ -420,8 +425,12 @@ class Analyzer:
         """One wave: threaded reads and decodes -> lane-chunk dispatches as
         they fill, each chunk's borderline hashes rescanned on a worker
         thread meanwhile (inline at the end without `threading`) ->
-        assembly/persist. Cache semantics identical to needle_tpu's."""
-        from .tracing import span
+        assembly/persist. Cache semantics identical to needle_tpu's. The
+        span `analyze.read_wait` is the main thread's wait for each
+        episode's read (the read itself without `threading`); a raw-PCM
+        read maps the file, whose bytes are read where the lanes are
+        assembled (`ingest.lane_copy`)."""
+        from .tracing import carry, span
 
         def prepare(path):
             """("cached", FrameHashes) or (md5, seek_to, has_ending, "raw",
@@ -471,12 +480,19 @@ class Analyzer:
         with span("analyze.decode", videos=len(videos)):
             if threading and len(videos) > 1:
                 workers = max(1, min(4, os.cpu_count() or 4))
-                with ThreadPoolExecutor(max_workers=workers) as pool:
-                    for vi, item in enumerate(pool.map(prepare, videos)):
+                with ThreadPoolExecutor(
+                        max_workers=workers,
+                        thread_name_prefix="needle-read") as pool:
+                    items = pool.map(carry(prepare), videos)
+                    for vi in range(len(videos)):
+                        with span("analyze.read_wait"):
+                            item = next(items)
                         consume(vi, item)
             else:
                 for vi, path in enumerate(videos):
-                    consume(vi, prepare(path))
+                    with span("analyze.read_wait"):
+                        item = prepare(path)
+                    consume(vi, item)
 
         hashes_by_ref = {}
         with span(

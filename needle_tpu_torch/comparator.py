@@ -460,38 +460,41 @@ class Comparator:
         """Candidate voting, skip files, and display from per-pair infos
         (comparator.rs:567-629). `data` is the non-empty (src, dst, info)
         list."""
-        n = len(self.videos)
-        info_map: List[List[Tuple[OpeningAndEndingInfo, bool]]] = [[] for _ in range(n)]
-        for src_idx, dst_idx, info in data:
-            info_map[src_idx].append((info, True))
-            info_map[dst_idx].append((info, False))
+        from .tracing import span
 
-        results: List[SearchResult] = []
-        for idx, matches in enumerate(info_map):
-            path = self.videos[idx]
-            if display:
-                print(f"\n{path}\n")
+        with span("search.finalize", infos=len(data)):
+            n = len(self.videos)
+            info_map: List[List[Tuple[OpeningAndEndingInfo, bool]]] = [[] for _ in range(n)]
+            for src_idx, dst_idx, info in data:
+                info_map[src_idx].append((info, True))
+                info_map[dst_idx].append((info, False))
 
-            if use_skip_files and self.check_skip_file(path):
+            results: List[SearchResult] = []
+            for idx, matches in enumerate(info_map):
+                path = self.videos[idx]
                 if display:
-                    print("Skipping due to existing skip file...")
-                continue
+                    print(f"\n{path}\n")
 
-            result = self.find_best_match(matches)
-            if result is None:
+                if use_skip_files and self.check_skip_file(path):
+                    if display:
+                        print("Skipping due to existing skip file...")
+                    continue
+
+                result = self.find_best_match(matches)
+                if result is None:
+                    if display:
+                        if self.include_endings:
+                            print("No opening or ending found.")
+                        else:
+                            print("No opening found.")
+                    continue
                 if display:
-                    if self.include_endings:
-                        print("No opening or ending found.")
-                    else:
-                        print("No opening found.")
-                continue
-            if display:
-                self.display_opening_ending_info(result)
-            if write_skip_files:
-                self.create_skip_file(path, result)
-            results.append(result)
+                    self.display_opening_ending_info(result)
+                if write_skip_files:
+                    self.create_skip_file(path, result)
+                results.append(result)
 
-        return results
+            return results
 
     def run(
         self,
@@ -504,19 +507,24 @@ class Comparator:
         """comparator.rs:637-663; with analyze=True every video goes
         through this package's Analyzer in one batched pass (force, default
         hash duration, not persisted), on this Comparator's device."""
-        if analyze:
-            from .analyzer import Analyzer
+        from .tracing import pass_span, span
 
-            analyzer = Analyzer(list(self.videos), device=self.device)
-            frame_hashes = analyzer.with_force(True).run(
-                Duration.from_secs_f32(constants.DEFAULT_HASH_DURATION),
-                persist=False,
-                threading=threading,
+        with pass_span("search", videos=len(self.videos)):
+            if analyze:
+                from .analyzer import Analyzer
+
+                analyzer = Analyzer(list(self.videos), device=self.device)
+                frame_hashes = analyzer.with_force(True).run(
+                    Duration.from_secs_f32(constants.DEFAULT_HASH_DURATION),
+                    persist=False,
+                    threading=threading,
+                )
+            else:
+                with span("search.load", videos=len(self.videos)):
+                    frame_hashes = [
+                        FrameHashes.from_video(video) for video in self.videos
+                    ]
+            return self.run_with_frame_hashes(
+                frame_hashes, display, use_skip_files, write_skip_files,
+                threading
             )
-        else:
-            frame_hashes = [
-                FrameHashes.from_video(video) for video in self.videos
-            ]
-        return self.run_with_frame_hashes(
-            frame_hashes, display, use_skip_files, write_skip_files, threading
-        )

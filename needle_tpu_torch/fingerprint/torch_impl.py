@@ -27,6 +27,7 @@ inside the margin.
 from __future__ import annotations
 
 import functools
+import resource
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence
 
@@ -288,6 +289,12 @@ def ingest_fingerprint_batched(
     )
 
 
+def _page_faults() -> int:
+    """Minor plus major page faults of the calling thread so far."""
+    r = resource.getrusage(resource.RUSAGE_THREAD)
+    return r.ru_minflt + r.ru_majflt
+
+
 class IngestDispatcher:
     """Raw-PCM ingest on one device. add() records segments (memmap views
     are fine: no bytes move yet); a chunk of LANES segments of one frame
@@ -301,6 +308,8 @@ class IngestDispatcher:
 
     def __init__(self, in_rate: int, channels: int = 1, device="cuda",
                  threading: bool = True):
+        from ..tracing import span
+
         self.device = resolve_device(device)
         self.in_rate = in_rate
         self.channels = channels
@@ -311,10 +320,11 @@ class IngestDispatcher:
         f = decimation_factor(in_rate)
         self.dec_factor = f if f in (2, 4) else 1
         self.mid_rate = in_rate // self.dec_factor
-        self._rs_mat = torch.from_numpy(
-            plan._resample_plan(self.mid_rate)[3]
-        ).to(self.device)
-        self._tables = _device_tables(self.device)
+        with span("ingest.setup"):
+            self._rs_mat = torch.from_numpy(
+                plan._resample_plan(self.mid_rate)[3]
+            ).to(self.device)
+            self._tables = _device_tables(self.device)
         self._pending: dict = {}  # nf_bucket -> (refs, [(segment, n_valid)])
         self._chunks: list = []  # (chunk, its worker's future or None)
         self._pool = None  # the worker, started by the first chunk
@@ -349,7 +359,7 @@ class IngestDispatcher:
             self._dispatch(nf_b)
 
     def _dispatch(self, nf_b: int) -> None:
-        from ..tracing import metrics, span
+        from ..tracing import carry, metrics, span
 
         refs, segs = self._pending.pop(nf_b)
         _, in_len, _ = plan._ingest_dims(self.mid_rate, nf_b)
@@ -359,29 +369,47 @@ class IngestDispatcher:
             # zeros, which is what the device mask would make of it
             buf = np.zeros((LANES, in_len), np.int16)
             nv = np.zeros(LANES, np.int32)
-            for r, (s, n_valid) in enumerate(segs):
-                nv[r] = min(n_valid, in_len) // self.channels
-                take = min(len(s), int(nv[r]) * self.channels)
-                buf[r, :take] = s[:take]
+            # the copy reads the episodes: a memmap's pages fault in here
+            faults0 = _page_faults()
+            with span("ingest.lane_copy"):
+                copied = 0
+                for r, (s, n_valid) in enumerate(segs):
+                    nv[r] = min(n_valid, in_len) // self.channels
+                    take = min(len(s), int(nv[r]) * self.channels)
+                    buf[r, :take] = s[:take]
+                    copied += take * buf.itemsize
+            metrics.record("ingest.lane_copy_faults",
+                           float(_page_faults() - faults0))
+            metrics.record("ingest.lane_bytes", float(copied))
         with span("ingest.upload"):
             raw = torch.from_numpy(buf).to(self.device)
             nv_d = torch.from_numpy(nv).to(self.device)
         metrics.record("ingest.upload_bytes", float(buf.nbytes))
         with span("ingest.dispatch"):
+            # card time of the chunk's kernels, read once its download has
+            # been waited for (_collect_and_rescan): no synchronisation here
+            kernels = None
+            if self.device.type == "cuda":
+                kernels = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+                kernels[0].record()
             out = ingest_fingerprint_batched(
                 raw, nv_d, self._rs_mat, self._tables, self.mid_rate,
                 self.channels, nf_b, self.dec_factor, with_flags=True,
             )
-        # the rescan needs each lane's raw segment again
-        lanes = [(ref, self._out_lens[ref], s, n_valid)
-                 for ref, (s, n_valid) in zip(refs, segs)]
-        chunk = (lanes, nf_b, *self._download(out))
-        future = None
-        if self.threading:
-            if self._pool is None:
-                self._pool = ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="needle-rescan")
-            future = self._pool.submit(self._collect_and_rescan, *chunk)
+            if kernels:
+                kernels[1].record()
+            # the rescan needs each lane's raw segment again
+            lanes = [(ref, self._out_lens[ref], s, n_valid)
+                     for ref, (s, n_valid) in zip(refs, segs)]
+            chunk = (lanes, nf_b, *self._download(out), kernels)
+            future = None
+            if self.threading:
+                if self._pool is None:
+                    self._pool = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="needle-rescan")
+                future = self._pool.submit(
+                    carry(self._collect_and_rescan), *chunk)
         self._chunks.append((chunk, future))
 
     def _download(self, out):
@@ -399,17 +427,20 @@ class IngestDispatcher:
         return (*host, event)
 
     def _collect_and_rescan(self, lanes, nf_b, hashes, flag_rows,
-                            event) -> dict:
+                            event, kernels) -> dict:
         """One chunk's ref -> uint32 hashes: its outputs cut to each lane's
         n_sub, the borderline-flagged ones recomputed with the canonical
-        host oracle."""
-        from ..tracing import span
+        host oracle. On a card, `event` ends the chunk's download and
+        `kernels` brackets its kernels (counter ingest.kernels_card_s)."""
+        from ..tracing import metrics, span
 
         from .ingest_oracle import ingest_hashes_ranges_oracle
 
         with span("ingest.collect"):
             if event is not None:
                 event.synchronize()
+                metrics.record("ingest.kernels_card_s",
+                               kernels[0].elapsed_time(kernels[1]) / 1e3)
             hashes = hashes.numpy()
             flag_rows = flag_rows.numpy()
             results, flags = {}, {}
@@ -417,6 +448,7 @@ class IngestDispatcher:
                 results[ref] = hashes[r, :n].astype(np.uint32)
                 flags[ref] = flag_rows[r, :n]
         total = sum(int(f.sum()) for f in flags.values())
+        metrics.record("ingest.rescan_hashes", float(total))
         if not total:
             return results
         with span("ingest.rescan", flagged=total):

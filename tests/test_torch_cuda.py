@@ -2,7 +2,8 @@
 plain PyTorch version and against the previous design (batch_counts_popc),
 and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
-against the same code on the CPU or the numpy oracle; NEEDLE_TPU_PROFILE's
+against the same code on the CPU or the numpy oracle; the card time of
+the fused ingest's kernels (`ingest.kernels_card_s`); NEEDLE_TPU_PROFILE's
 trace of a search on the card, `parallel.distributed` over NCCL as a
 world of one, and the parity harness on every route. These tests need
 an NVIDIA GPU and nvcc; elsewhere they skip. This file imports no jax, so
@@ -299,6 +300,37 @@ def test_profile_on_card_holds_the_count_walk(dev, tmp_path, monkeypatch):
     assert any(e.get("cat") == "kernel" and "diag_runs" in e.get("name", "")
                for e in events)
     assert any(e.get("name") == "needle search" for e in events)
+
+
+def test_ingest_kernels_timed_on_card(dev, tmp_path, monkeypatch):
+    """ingest.kernels_card_s: the card seconds of the fused ingest's
+    kernels, read once each chunk's download was waited for; above 0 and
+    below the analyze's own wall."""
+    import time
+
+    from needle_tpu_torch.analyzer import Analyzer
+    from needle_tpu_torch.duration import Duration
+    from needle_tpu_torch.testing import make_synthetic_season
+    from needle_tpu_torch.tracing import metrics
+
+    paths, _, _ = make_synthetic_season(
+        tmp_path / "season", num_episodes=3, episode_secs=60.0,
+        opening_secs=12.0, opening_offset_range=(1.0, 4.0), ending_secs=10.0,
+        seed=8)
+    monkeypatch.setenv("NEEDLE_TPU_ALLOW_AUDIO", "1")
+    analyzer = Analyzer.from_files(paths, False, True, device="cuda")
+    analyzer.with_include_endings(True)
+    hash_duration = Duration.from_secs_f32(np.float32(0.3))
+    analyzer.run(hash_duration, False)  # warm-up
+    before = metrics.snapshot().get("ingest.kernels_card_s", (0.0, 0))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    analyzer.run(hash_duration, False)
+    torch.cuda.synchronize()
+    analyze_s = time.perf_counter() - t
+    total, count = metrics.snapshot()["ingest.kernels_card_s"]
+    assert count > before[1]  # one reading a lane chunk
+    assert 0 < total - before[0] < analyze_s
 
 
 def test_nccl_world_of_one(dev):
