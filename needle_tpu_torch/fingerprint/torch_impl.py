@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import functools
 import resource
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence
 
@@ -155,7 +156,7 @@ def _post_chroma(chroma, W_cls, thresholds, n_frames, with_flags=False,
         + (values >= thresholds[:, 1]).to(torch.int64)
         + (values >= thresholds[:, 2]).to(torch.int64)
     )
-    gray = torch.tensor(_GRAY, dtype=torch.int64, device=q.device)[q]
+    gray = _device_gray(q.device)[q]
     hashes = _pack_bits(gray)
     if not with_flags:
         return hashes
@@ -252,6 +253,85 @@ def _device_tables(device: torch.device):
     return tuple(
         torch.from_numpy(t).to(device) for t in (wc, ws, fold, W_cls, thresholds)
     )
+
+
+@functools.lru_cache(maxsize=4)
+def _device_gray(device: torch.device) -> torch.Tensor:
+    """`_GRAY` on `device`, uploaded once: a table built per call would be a
+    blocking copy from the host in the middle of every enqueue."""
+    return torch.tensor(_GRAY, dtype=torch.int64, device=device)
+
+
+class _Slot:
+    """A staging buffer: the lanes' int16 samples (flat, read as (LANES,
+    in_len) from its start), their LANES int32 valid counts, whether both
+    are page-locked, whether a thread is filling it, and the event that
+    ends the last upload from it (None on the CPU)."""
+
+    __slots__ = ("raw", "nv", "pinned", "held", "event")
+
+    def __init__(self):
+        self.raw = self.nv = self.event = None
+        self.pinned = self.held = False
+
+
+class _StagingRing:
+    """The two host buffers that every IngestDispatcher of the process
+    stages its lane chunks in, kept across passes: each slot grows to the
+    largest chunk staged in it and is page-locked on a card, so a chunk's
+    upload runs while the host stages the next one and no pass touches
+    fresh pages. A chunk takes the next slot not being filled by another
+    thread, or, if there is none, buffers of its own."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._slots = [_Slot(), _Slot()]
+        self._next = 0
+
+    def take(self):
+        """The next free slot, now held by the caller; None if every slot
+        is held."""
+        with self._lock:
+            n = len(self._slots)
+            for k in range(n):
+                slot = self._slots[(self._next + k) % n]
+                if not slot.held:
+                    slot.held = True
+                    self._next = (self._next + k + 1) % n
+                    return slot
+        return None
+
+    def release(self, slot, event) -> None:
+        """Hand `slot` back; `event` fires once its upload has read it."""
+        if slot is not None:
+            with self._lock:
+                slot.event, slot.held = event, False
+
+    @staticmethod
+    def buffers(slot, n: int, pinned: bool):
+        """(n int16, LANES int32) host tensors to stage a chunk in, and
+        whether `slot` had them already. A slot is waited for until its
+        last upload has read it (span ingest.staging_wait), then grown if
+        it is too small or not page-locked where `pinned` asks for it;
+        without a slot the buffers are new."""
+        from ..tracing import span
+
+        if slot is not None:
+            with span("ingest.staging_wait"):
+                if slot.event is not None:
+                    slot.event.synchronize()
+            if (slot.raw is not None and slot.raw.numel() >= n
+                    and slot.nv.numel() >= LANES
+                    and (slot.pinned or not pinned)):
+                return slot.raw[:n], slot.nv[:LANES], True
+        raw = torch.empty(n, dtype=torch.int16, pin_memory=pinned)
+        nv = torch.empty(LANES, dtype=torch.int32, pin_memory=pinned)
+        if slot is not None:
+            slot.raw, slot.nv, slot.pinned = raw, nv, pinned
+        return raw, nv, False
+
+
+_staging = _StagingRing()
 
 
 def _mask_frames(x: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
@@ -358,33 +438,58 @@ class IngestDispatcher:
         if len(refs) >= LANES:
             self._dispatch(nf_b)
 
+    def _stage(self, segs, in_len: int):
+        """A chunk's (LANES, in_len) lanes and (LANES,) valid counts on the
+        device, staged in a slot of the ring (or buffers of its own) and
+        copied from there without waiting for the copy."""
+        from ..tracing import metrics, span
+
+        cuda = self.device.type == "cuda"
+        slot, event = _staging.take(), None
+        try:
+            with span("ingest.batch_assemble"):
+                raw, nv, hit = _staging.buffers(slot, LANES * in_len, cuda)
+                metrics.record("ingest.staging_hits" if hit
+                               else "ingest.staging_misses", 1.0)
+                buf, nv_h = raw.numpy().reshape(LANES, in_len), nv.numpy()
+                nv_h[len(segs):] = 0
+                # only the valid samples are copied and the lane is not
+                # cleared: the device zeroes every frame at or past nv, so
+                # what an earlier chunk left there is never read. The copy
+                # reads the episodes: a memmap's pages fault in here
+                faults0 = _page_faults()
+                with span("ingest.lane_copy"):
+                    copied = 0
+                    for r, (s, n_valid) in enumerate(segs):
+                        nv_h[r] = n = min(n_valid, in_len) // self.channels
+                        take = min(len(s), n * self.channels)
+                        buf[r, :take] = s[:take]
+                        buf[r, take : n * self.channels] = 0
+                        copied += take * buf.itemsize
+                metrics.record("ingest.lane_copy_faults",
+                               float(_page_faults() - faults0))
+                metrics.record("ingest.lane_bytes", float(copied))
+            with span("ingest.upload"):
+                # from page-locked memory the copies are only enqueued; the
+                # event hands the slot on once they have read it
+                raw_d = raw.view(LANES, in_len).to(
+                    self.device, non_blocking=True, copy=True)
+                nv_d = nv.to(self.device, non_blocking=True, copy=True)
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record()
+        finally:
+            _staging.release(slot, event)
+        metrics.record("ingest.upload_bytes", float(buf.nbytes))
+        return raw_d, nv_d
+
     def _dispatch(self, nf_b: int) -> None:
-        from ..tracing import carry, metrics, span
+        from ..tracing import carry, span
 
         refs, segs = self._pending.pop(nf_b)
         _, in_len, _ = plan._ingest_dims(self.mid_rate, nf_b)
         in_len *= self.channels * self.dec_factor
-        with span("ingest.batch_assemble"):
-            # only the valid samples are copied; the rest of the lane is
-            # zeros, which is what the device mask would make of it
-            buf = np.zeros((LANES, in_len), np.int16)
-            nv = np.zeros(LANES, np.int32)
-            # the copy reads the episodes: a memmap's pages fault in here
-            faults0 = _page_faults()
-            with span("ingest.lane_copy"):
-                copied = 0
-                for r, (s, n_valid) in enumerate(segs):
-                    nv[r] = min(n_valid, in_len) // self.channels
-                    take = min(len(s), int(nv[r]) * self.channels)
-                    buf[r, :take] = s[:take]
-                    copied += take * buf.itemsize
-            metrics.record("ingest.lane_copy_faults",
-                           float(_page_faults() - faults0))
-            metrics.record("ingest.lane_bytes", float(copied))
-        with span("ingest.upload"):
-            raw = torch.from_numpy(buf).to(self.device)
-            nv_d = torch.from_numpy(nv).to(self.device)
-        metrics.record("ingest.upload_bytes", float(buf.nbytes))
+        raw, nv_d = self._stage(segs, in_len)
         with span("ingest.dispatch"):
             # card time of the chunk's kernels, read once its download has
             # been waited for (_collect_and_rescan): no synchronisation here

@@ -2,7 +2,8 @@
 plain PyTorch version and against the previous design (batch_counts_popc),
 and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
-against the same code on the CPU or the numpy oracle; the card time of
+against the same code on the CPU or the numpy oracle; the fused ingest's
+dispatches without a synchronisation, from page-locked slots; the card time of
 the fused ingest's kernels (`ingest.kernels_card_s`); NEEDLE_TPU_PROFILE's
 trace of a search on the card, `parallel.distributed` over NCCL as a
 world of one, and the parity harness on every route. These tests need
@@ -219,6 +220,55 @@ def test_ingest_rescan_worker_on_card(dev, monkeypatch):
                                            nf_b, n_sub)
         np.testing.assert_array_equal(got[i], want)
         np.testing.assert_array_equal(inline[i], want)
+
+
+def test_ingest_staged_without_a_sync(dev, monkeypatch):
+    """Each lane chunk goes to the card without the host waiting: after a
+    warm-up, three chunks' dispatches run under set_sync_debug_mode
+    ("error"), staged in page-locked slots with no miss, and give the
+    oracle's hashes."""
+    from needle_tpu_torch.fingerprint import ingest_oracle as O
+    from needle_tpu_torch.fingerprint import torch_impl as T
+    from needle_tpu_torch.tracing import metrics
+
+    monkeypatch.setattr(T, "LANES", 2)
+    monkeypatch.setattr(T, "_staging", T._StagingRing())
+    rng = np.random.default_rng(19)
+    # buckets 224, 224 (two full chunks) and 192 (a partial one)
+    segs = [(rng.standard_normal(16000 * s) * 6000).astype(np.int16)
+            for s in (25, 25, 25, 25, 24)]
+
+    def counts():
+        snap = metrics.snapshot()
+        return [snap.get(k, (0.0, 0))[1]
+                for k in ("ingest.staging_hits", "ingest.staging_misses")]
+
+    T.fingerprint_ingest_batch(segs, 16000, 1, device="cuda")  # warm-up
+    dispatch = T.IngestDispatcher._dispatch
+
+    def strict(self, nf_b):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(self, nf_b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    before = counts()
+    monkeypatch.setattr(T.IngestDispatcher, "_dispatch", strict)
+    try:
+        got = T.fingerprint_ingest_batch(segs, 16000, 1, device="cuda")
+    finally:
+        monkeypatch.setattr(T.IngestDispatcher, "_dispatch", dispatch)
+    hits, misses = (a - b for a, b in zip(counts(), before))
+    assert (hits, misses) == (3, 0)
+    for slot in T._staging._slots:
+        assert slot.pinned and slot.raw.is_pinned() and slot.nv.is_pinned()
+    d = T.IngestDispatcher(16000, 1, "cuda")
+    for g, s in zip(got, segs):
+        n_sub, nf_b = d.lane_geometry(len(s))
+        want = O.ingest_hashes_full_oracle(s, len(s), 16000, 1, d.dec_factor,
+                                           nf_b, n_sub)
+        np.testing.assert_array_equal(g, want)
 
 
 def test_prefilter_on_card_equals_cpu(dev, monkeypatch):
