@@ -4,8 +4,9 @@ A frozen copy of the port's season writer (`make_synthetic_season` in
 needle_tpu_torch/testing.py, the same as needle_tpu/testing.py): episodes
 of pseudo-music that share an opening at a random offset and, optionally,
 an ending a few seconds before their end. The same seed gives the same
-bytes as that writer. Two formats: `wav` (16-bit PCM RIFF/WAVE) and `pcm`
-(the same samples, headerless; the pre-decoded input of bench.py's small3).
+samples as that writer, and in the formats `wav` and `pcm` the same bytes.
+How an episode's samples become its file is the season format's
+(formats/<format>.py, whose module is handed over by path).
 
 A run's season is written from the run's seed (`ensure_season`): every
 seed gives episodes of the same sizes, offsets drawn from the same ranges,
@@ -19,7 +20,7 @@ computes the episodes (the sines, most of the time) in worker processes:
 a season of 28 x 1200 s takes about a minute on one core. Each file is
 flushed to the disk before the call returns, so that no write-back of the
 season runs on into a run's window.
-Imports nothing but numpy.
+Imports nothing but numpy and the format's module.
 """
 
 from __future__ import annotations
@@ -28,32 +29,18 @@ import json
 import multiprocessing
 import os
 import shutil
-import struct
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+from .. import formats
+
 MARKER = "SEASON.json"
 # files of the reference's cache, which live beside the season they are of
 REFERENCE_PREFIX = "reference"
 AMPLITUDE = 9000
-
-
-def write_wav_i16(path, samples: np.ndarray, rate: int, channels: int = 1) -> None:
-    """Minimal RIFF/WAVE PCM16 writer."""
-    samples = np.ascontiguousarray(samples, dtype="<i2")
-    data = samples.tobytes()
-    with open(path, "wb") as f:
-        byte_rate = rate * channels * 2
-        f.write(b"RIFF")
-        f.write(struct.pack("<I", 36 + len(data)))
-        f.write(b"WAVEfmt ")
-        f.write(struct.pack("<IHHIIHH", 16, 1, channels, rate, byte_rate, channels * 2, 16))
-        f.write(b"data")
-        f.write(struct.pack("<I", len(data)))
-        f.write(data)
 
 
 def _music_like(rng: np.random.Generator, n: int, rate: int) -> np.ndarray:
@@ -102,9 +89,10 @@ def _shared_segments(seed: int, spec: dict):
 _WORKER = {}
 
 
-def _worker_init(seed: int, spec: dict) -> None:
+def _worker_init(seed: int, spec: dict, fmt) -> None:
     _, opening, ending = _shared_segments(seed, spec)
-    _WORKER.update(spec=spec, opening=opening, ending=ending)
+    _WORKER.update(spec=spec, opening=opening, ending=ending,
+                   write=formats.load(fmt).write)
 
 
 def _write_episode(job) -> None:
@@ -118,10 +106,7 @@ def _write_episode(job) -> None:
     if ending is not None:
         body[end_off : end_off + len(ending)] = ending
     pcm = np.clip(body * AMPLITUDE, -32768, 32767).astype(np.int16)
-    if spec["format"] == "wav":
-        write_wav_i16(path, pcm, rate, 1)
-    else:
-        pcm.astype("<i2").tofile(path)
+    _WORKER["write"](path, pcm, spec)
     fd = os.open(path, os.O_RDONLY)
     try:
         os.fsync(fd)
@@ -129,15 +114,18 @@ def _write_episode(job) -> None:
         os.close(fd)
 
 
-def episode_name(e: int, fmt: str) -> str:
-    return f"ep{e + 1:02d}.{fmt}"
+def episode_name(e: int, ext: str) -> str:
+    return f"ep{e + 1:02d}.{ext}"
 
 
-def write_season(out_dir, spec: dict, seed: int, workers: int = None):
+def write_season(out_dir, spec: dict, seed: int, fmt, workers: int = None):
     """Write the season `spec` (episodes, episode_secs, opening_secs,
-    opening_offsets [lo, hi], ending_secs, rate, format) from `seed` into
-    out_dir. Returns (paths, opening truth, ending truth), each truth a
-    (start s, end s) per episode (None where there is no ending)."""
+    opening_offsets [lo, hi], ending_secs, rate, format, and the format's
+    SPEC_KEYS) from `seed` into out_dir, in the format whose module is at
+    the path `fmt` (formats/). Returns (paths, opening truth, ending
+    truth), each truth a (start s, end s) per episode (None where there is
+    no ending)."""
+    ext = formats.load(fmt).EXT
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     rate = spec["rate"]
@@ -156,22 +144,23 @@ def write_season(out_dir, spec: dict, seed: int, workers: int = None):
         else:
             ending_truth.append(None)
         jobs.append((state, start, end_off,
-                     str(out_dir / episode_name(e, spec["format"]))))
+                     str(out_dir / episode_name(e, ext))))
     workers = max(1, min(workers or os.cpu_count() or 1, len(jobs)))
     with ProcessPoolExecutor(workers, multiprocessing.get_context("spawn"),
-                             _worker_init, (seed, spec)) as pool:
+                             _worker_init, (seed, spec, fmt)) as pool:
         for _ in pool.map(_write_episode, jobs):
             pass
     return [Path(j[3]) for j in jobs], opening_truth, ending_truth
 
 
-def ensure_season(season_dir, spec: dict, seed: int):
+def ensure_season(season_dir, spec: dict, seed: int, fmt):
     """(paths, opening truth, ending truth, seconds spent writing) of the
-    season of `spec` written from `seed` in season_dir. Kept while its
-    marker names that seed and spec, with only the episodes and the
-    reference's cache left in the directory (what earlier runs wrote
-    beside the episodes is removed); else written anew, after everything
-    in the directory is removed, so a directory holds one seed's season."""
+    season of `spec` written from `seed` in season_dir, in the format whose
+    module is at `fmt` (as write_season). Kept while its marker names that
+    seed and spec, with only the episodes and the reference's cache left in
+    the directory (what earlier runs wrote beside the episodes is removed);
+    else written anew, after everything in the directory is removed, so a
+    directory holds one seed's season."""
     season_dir = Path(season_dir)
     marker = season_dir / MARKER
     if marker.exists():
@@ -187,7 +176,7 @@ def ensure_season(season_dir, spec: dict, seed: int):
     t = time.perf_counter()
     if season_dir.exists():
         shutil.rmtree(season_dir)
-    paths, op_truth, en_truth = write_season(season_dir, spec, seed)
+    paths, op_truth, en_truth = write_season(season_dir, spec, seed, fmt)
     held = json.loads(json.dumps({  # as a later run reads it back
         "seed": seed, "spec": spec, "files": [p.name for p in paths],
         "opening": op_truth, "ending": en_truth}))

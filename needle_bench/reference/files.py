@@ -5,10 +5,12 @@ The analyzer (needle/src/audio/analyzer.rs:286-420, as the port copies it)
 hashes two windows of each episode: the opening window, the first
 opening_window share of the stream, and the ending window, from
 stream x (1 - ending_window) (truncated to whole milliseconds) to the end.
-It keeps every step-th hash (step = hash duration in ms // the 123 ms
-item), stamps hash i with delay + item x i (Rust Duration arithmetic in
-float32), adds the seek to the ending's, and stores them with the MD5 of
-the file's first 8 KiB as bincode:
+How each window is read (whole at the source rate, or decoded) is the
+season format's (formats/; `raw_windows` is the raw route's rule). It
+keeps every step-th hash (step = hash duration in ms // the 123 ms item),
+stamps hash i with delay + item x i (Rust Duration arithmetic in float32),
+adds the seek to the ending's, and stores them with the MD5 of the file's
+first 8 KiB as bincode:
 
   u32 0, u32 0 (version and data variants), then for the opening and the
   ending a u64 count and (u32 hash, u64 s, u32 ns) records, then the hash
@@ -24,7 +26,6 @@ import hashlib
 import json
 import struct
 from fractions import Fraction
-from pathlib import Path
 
 import numpy as np
 
@@ -56,28 +57,6 @@ ITEM_NS = from_secs_f64(HOP_SIZE / SAMPLE_RATE)
 DELAY_NS = from_secs_f64(DELAY_SAMPLES / SAMPLE_RATE)
 
 
-def read_samples(path, fmt: str, rate: int):
-    """(interleaved i16 samples, rate, channels) of a season file."""
-    path = Path(path)
-    if fmt == "pcm":
-        return np.fromfile(path, dtype="<i2"), rate, 1
-    raw = path.read_bytes()
-    if raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
-        raise ValueError(f"not a WAV file: {path}")
-    pos, fmt_chunk, data = 12, None, None
-    while pos + 8 <= len(raw):
-        cid, size = raw[pos:pos + 4], struct.unpack("<I", raw[pos + 4:pos + 8])[0]
-        if cid == b"fmt ":
-            fmt_chunk = struct.unpack("<HHIIHH", raw[pos + 8:pos + 24])
-        elif cid == b"data":
-            data = raw[pos + 8:pos + 8 + size]
-        pos += 8 + size + (size & 1)
-    audio_fmt, channels, rate, _, _, bits = fmt_chunk
-    if audio_fmt != 1 or bits != 16:
-        raise ValueError(f"not 16-bit PCM: {path}")
-    return np.frombuffer(data, dtype="<i2"), rate, channels
-
-
 def header_md5(path) -> str:
     with open(path, "rb") as f:
         return hashlib.md5(f.read(8192)).hexdigest()
@@ -90,22 +69,32 @@ def _stamps(count: int, step: int, offset_ns: int) -> np.ndarray:
                     dtype=np.int64) + DELAY_NS + offset_ns
 
 
-def episode_hashes(path, fmt: str, rate: int, cfg: dict) -> dict:
-    """The analyzer's FrameHashes of one episode: opening and ending hashes
-    with their timestamps (ns), the hash duration (ns) and the MD5."""
-    samples, rate, channels = read_samples(path, fmt, rate)
+def raw_windows(samples: np.ndarray, rate: int, channels: int, cfg: dict):
+    """A season format's windows() for a file the analyzer reads whole at
+    its source rate (the raw route): the stream's length from the sample
+    count, the opening window from the start, the ending window from the
+    ms-truncated seek to the end."""
     stream_ns = from_secs_f64((samples.size // channels) / rate)
     opening_ns = mul_f32(stream_ns, cfg["opening_window"])
     secs = float(opening_ns // NS) + float(opening_ns % NS) / 1e9
     n_open = int(secs * rate) * channels
     seek_ns = mul_f32(stream_ns, np.float32(1.0) - np.float32(cfg["ending_window"]))
     n_skip = int(((seek_ns // 1_000_000) / 1000.0) * rate) * channels
+    return (stream_ns, (samples, n_open, rate, channels),
+            (samples[n_skip:], samples.size - n_skip, rate, channels), seek_ns)
+
+
+def episode_hashes(path, fmt, cfg: dict) -> dict:
+    """The analyzer's FrameHashes of one episode: opening and ending hashes
+    with their timestamps (ns), the hash duration (ns) and the MD5. `fmt`
+    is the season format's module (formats/), whose windows() says what
+    the analyzer's route reads of the episode."""
+    _, opening, ending, seek_ns = fmt.windows(path, cfg)
     hd_ns = from_secs_f32(np.float32(cfg["hash_duration_s"]))
     step = (hd_ns // 1_000_000) // (ITEM_NS // 1_000_000)
     out = {"hash_duration_ns": hd_ns, "md5": header_md5(path)}
-    for side, seg, nv, offset in (("opening", samples, n_open, 0),
-                                  ("ending", samples[n_skip:],
-                                   samples.size - n_skip, seek_ns)):
+    for side, (seg, nv, rate, channels), offset in (("opening", opening, 0),
+                                                    ("ending", ending, seek_ns)):
         raw = lane_hashes(seg, nv, rate, channels)
         kept = raw[::step]
         out[side] = kept

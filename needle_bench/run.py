@@ -15,8 +15,8 @@ from traced passes. Once all that is done, and before it prints, it looks
 for modules a run must not load.
 
 Everything about a cell is found by name: the cell in BENCHMARK.json,
-its configuration in configs/, its traffic mix in traffic/, each metric's
-reader in metrics/.
+its configuration in configs/, its traffic mix in traffic/, its season's
+format in formats/, each metric's reader in metrics/.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from pathlib import Path  # noqa: E402
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 CACHE = ROOT / ".bench_cache" / "needle_bench"
+# the configuration's keys that make its season, before its format's SPEC_KEYS
 SEASON_KEYS = ("episodes", "episode_secs", "opening_secs", "opening_offsets",
                "ending_secs", "rate", "format")
 # modules a run must not have loaded, compared by whole top-level name,
@@ -51,10 +52,13 @@ PROFILE_S, PROFILE_MIN, PROFILE_MAX = 2.0, 2, 12
 
 
 class Cell:
-    """A cell of BENCHMARK.json with its configuration, mix and metrics."""
+    """A cell of BENCHMARK.json with its configuration, mix, season format
+    and metrics. `format` is the path of the format's module; `season_spec`
+    the configuration's keys that make the season (SEASON_KEYS and the
+    format's SPEC_KEYS)."""
 
     def __init__(self, name: str, bench=ROOT / "BENCHMARK.json", folder=HERE):
-        from . import traffic
+        from . import formats, traffic
 
         spec = json.loads(Path(bench).read_text())
         found = [w for w in spec["workloads"] if w["name"] == name]
@@ -64,6 +68,9 @@ class Cell:
         self.cfg = json.loads(
             (self.folder / "configs" / f"{self.spec['config']}.json").read_text())
         self.mix = traffic.load(self.spec["traffic"], self.folder / "traffic")
+        self.format = formats.find(self.cfg["format"], self.folder / "formats")
+        keys = SEASON_KEYS + tuple(formats.load(self.format).SPEC_KEYS)
+        self.season_spec = {k: self.cfg[k] for k in keys}
         mine = lambda m: name in m.get("workloads", [name])  # noqa: E731
         self.end_to_end = [m for m in spec["end_to_end"] if mine(m)]
         self.per_layer = [m for m in spec["per_layer"] if mine(m)]
@@ -128,7 +135,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     cfg = cell.cfg
     season = Path(cache) / cell.spec["config"] / "season"
     paths, op_truth, en_truth, write_s = ensure_season(
-        season, {k: cfg[k] for k in SEASON_KEYS}, seed)
+        season, cell.season_spec, seed, cell.format)
     for p in paths:  # into the page cache
         with open(p, "rb") as f:
             while f.read(1 << 24):
@@ -190,7 +197,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    ref = season_reference(paths, cfg, cfg["threshold"],
+    ref = season_reference(paths, cfg, cfg["threshold"], cell.format,
                            cache=season / f"{REFERENCE_PREFIX}.pkl")
     checks = check.compare(outputs, searched, ref)
     misses = check.planted_misses(outputs, list(zip(op_truth, en_truth)),

@@ -1,5 +1,6 @@
 """A catalog of tiny cells for the benchmark's CPU tests: the real traffic
-mixes and metric readers, the real configurations cut to 3 x 150 s."""
+mixes, season formats and metric readers, the real configurations cut to
+3 x 150 s."""
 
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ def catalog(tmp_path_factory) -> Path:
     """A copy of needle_bench's folders with the configurations cut to
     TINY, and a BENCHMARK.json of the real cells and SEARCH_CELL."""
     folder = tmp_path_factory.mktemp("catalog")
-    for sub in ("traffic", "metrics"):
+    for sub in ("traffic", "formats", "metrics"):
         shutil.copytree(HERE / sub, folder / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (folder / "configs").mkdir()

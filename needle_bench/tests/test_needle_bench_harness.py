@@ -15,6 +15,7 @@ import types
 import numpy as np
 import pytest
 
+from needle_bench import formats
 from needle_bench import run as bench_run
 from needle_bench.data.season import MARKER, ensure_season, write_season
 from needle_bench.run import Cell, run_cell
@@ -240,7 +241,7 @@ def test_season_writer_equals_the_ports(tmp_path, fmt):
     from needle_tpu_torch.testing import make_synthetic_season
 
     spec = {**TINY, "opening_offsets": [5.0, 15.0], "rate": 16000, "format": fmt}
-    ours, op, en = write_season(tmp_path / "ours", spec, SEED, workers=2)
+    ours, op, en = write_season(tmp_path / "ours", spec, SEED, formats.find(fmt), workers=2)
     if fmt == "wav":
         theirs, op2, en2 = make_synthetic_season(
             tmp_path / "theirs", num_episodes=3, episode_secs=150.0, opening_secs=25.0,
@@ -258,17 +259,17 @@ def test_season_writer_equals_the_ports(tmp_path, fmt):
 def test_each_seed_writes_its_own_season(tmp_path):
     spec = {**TINY, "episode_secs": 20.0, "opening_secs": 5.0, "ending_secs": 5.0,
             "episodes": 3, "opening_offsets": [1.0, 3.0], "rate": 8000, "format": "pcm"}
-    d = tmp_path / "season"
-    a, op_a, _, wrote = ensure_season(d, spec, SEED)
+    d, pcm = tmp_path / "season", formats.find("pcm")
+    a, op_a, _, wrote = ensure_season(d, spec, SEED, pcm)
     bytes_a = [p.read_bytes() for p in a]
     assert wrote > 0 and sorted(q.name for q in d.iterdir()) == sorted(
         [MARKER, "ep01.pcm", "ep02.pcm", "ep03.pcm"])
     (d / "ep01.needle.dat").write_bytes(b"old")
     (d / "reference.pkl").write_bytes(b"kept")
-    again, op_again, _, wrote = ensure_season(d, spec, SEED)  # kept, outputs removed
+    again, op_again, _, wrote = ensure_season(d, spec, SEED, pcm)  # kept, outputs removed
     assert wrote == 0.0 and op_again == op_a
     assert not (d / "ep01.needle.dat").exists() and (d / "reference.pkl").exists()
-    b, op_b, _, wrote = ensure_season(d, spec, SEED + 1)  # another seed, other audio
+    b, op_b, _, wrote = ensure_season(d, spec, SEED + 1, pcm)  # another seed, other audio
     assert wrote > 0 and not (d / "reference.pkl").exists()
     assert [p.name for p in b] == [p.name for p in a]
     assert all(p.stat().st_size == len(x) for p, x in zip(b, bytes_a))
@@ -282,14 +283,15 @@ def test_the_reference_cache_holds_for_its_season_and_code(tmp_path, monkeypatch
             "episodes": 3, "opening_offsets": [1.0, 3.0], "rate": 16000, "format": "pcm"}
     cfg = {**json.loads((ROOT / "needle_bench/configs/small3-24min.json").read_text()),
            **spec}
-    paths, _, _, _ = ensure_season(tmp_path / "s", spec, SEED)
+    pcm = formats.find("pcm")
+    paths, _, _, _ = ensure_season(tmp_path / "s", spec, SEED, pcm)
     cache = tmp_path / "s" / "reference.pkl"
-    first = reference.season_reference(paths, cfg, 10, cache, workers=1)
+    first = reference.season_reference(paths, cfg, 10, pcm, cache, workers=1)
     monkeypatch.setattr(reference, "pair_entries", None)  # a second count would raise
-    assert reference.season_reference(paths, cfg, 10, cache)["entries"] == first["entries"]
-    monkeypatch.setattr(reference, "code_digest", lambda: "another reference")
+    assert reference.season_reference(paths, cfg, 10, pcm, cache)["entries"] == first["entries"]
+    monkeypatch.setattr(reference, "code_digest", lambda fmt: "another reference")
     with pytest.raises(TypeError):
-        reference.season_reference(paths, cfg, 10, cache, workers=1)
+        reference.season_reference(paths, cfg, 10, pcm, cache, workers=1)
 
 
 def test_files_dropped_in_are_found_by_name(catalog, cache, tmp_path):

@@ -1,6 +1,7 @@
 """What a run of the benchmark imports, read from its sources: no jax, no
 JAX package, no bench.py; of the port only the system under test; and
-nothing of the port in the reference or the season writer."""
+nothing of the port in the reference, the season writer or the season
+formats."""
 
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ def test_the_guard_sees_every_run_module():
     names = {p.relative_to(HERE).as_posix() for p in RUN_MODULES}
     assert {"run.py", "control.py", "check.py", "trace.py", "roofline.py",
             "traffic/__init__.py", "reference/fingerprint.py",
-            "data/season.py", "metrics/count_walk_roofline.py"} <= names
+            "data/season.py", "formats/wav.py", "formats/pcm.py",
+            "metrics/count_walk_roofline.py"} <= names
 
 
 @pytest.mark.parametrize("path", RUN_MODULES, ids=lambda p: p.relative_to(HERE).as_posix())
@@ -46,7 +48,7 @@ def test_no_forbidden_import(path):
         assert name.split(".")[0] not in FORBIDDEN_TOP, (path, name)
         assert not any(name == f or name.startswith(f + ".") for f in FORBIDDEN_PORT), \
             (path, name)
-        if path.relative_to(HERE).parts[0] in ("reference", "data"):
+        if path.relative_to(HERE).parts[0] in ("reference", "data", "formats"):
             assert name.split(".")[0] != "needle_tpu_torch", (path, name)
 
 

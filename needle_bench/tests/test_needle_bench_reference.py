@@ -8,7 +8,7 @@ import json
 import numpy as np
 import pytest
 
-from needle_bench import roofline
+from needle_bench import formats, roofline
 from needle_bench.data.season import _music_like, write_season
 from needle_bench.reference import fingerprint as ref_fp
 from needle_bench.reference.files import episode_hashes, needle_dat_bytes
@@ -30,10 +30,11 @@ def season(tmp_path_factory):
 
     d = tmp_path_factory.mktemp("season")
     spec = {**TINY, "opening_offsets": [5.0, 40.0], "rate": 16000, "format": "wav"}
-    paths, _, _ = write_season(d, spec, SEED, workers=2)
+    paths, _, _ = write_season(d, spec, SEED, formats.find("wav"), workers=2)
     fhs = Analyzer.from_files(paths, force=True, device="cpu").with_include_endings(
         True).run(Duration.from_secs_f32(np.float32(0.3)), persist=True)
-    ours = [episode_hashes(p, "wav", 16000, CFG) for p in paths]
+    wav = formats.load(formats.find("wav"))
+    ours = [episode_hashes(p, wav, CFG) for p in paths]
     return paths, fhs, ours
 
 
