@@ -88,20 +88,25 @@ def _hb_stage_window(
     input slice `x` covering global input rows [in_lo, in_lo + len(x)).
     Output row k reads input rows 2k-H .. 2k+H (decimate2_hb_np's exact
     integer semantics); the caller materializes zeros for out-of-domain
-    global rows, so the slice must cover [2*out_lo - H, 2*(out_hi-1)+H]."""
-    x64 = x.astype(np.int64)
+    global rows, so the slice must cover [2*out_lo - H, 2*(out_hi-1)+H].
+
+    Each channel runs as one contiguous row (a (rows, 2) slice would make
+    NumPy's inner loop two elements long), in int32 as on the card: inputs
+    are in the i16 range, so |acc| <= 32768 * (c0 + 2 * sum|q|) + 8192,
+    under 2**31 for both designs (9.9e8 main, 6.2e8 relaxed)."""
+    xc = np.ascontiguousarray(x.T, dtype=np.int32)
     n_out = out_hi - out_lo
 
     def sl(off: int) -> np.ndarray:
         o = 2 * out_lo + off - in_lo
-        return x64[o : o + 2 * n_out : 2]
+        return xc[:, o : o + 2 * n_out : 2]
 
-    acc = np.int64(c0) * sl(0)
+    acc = np.int32(c0) * sl(0)
     for m, q in enumerate(np.asarray(odd_q)):
         d = 2 * m + 1
-        acc = acc + np.int64(q) * (sl(-d) + sl(d))
+        acc += np.int32(q) * (sl(-d) + sl(d))
     y = (acc + 8192) >> 14
-    return np.clip(y, -32768, 32767).astype(np.int32)
+    return np.ascontiguousarray(np.clip(y, -32768, 32767).T)
 
 
 def _prepare_mid_window(

@@ -27,7 +27,6 @@ inside the margin.
 from __future__ import annotations
 
 import functools
-import resource
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence
@@ -35,6 +34,11 @@ from typing import List, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+try:
+    import resource
+except ImportError:  # Windows has no `resource`
+    resource = None
 
 from .constants import (
     CHROMA_FILTER_COEFFS,
@@ -340,14 +344,12 @@ def _mask_frames(x: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
     return torch.where(frame < nv[:, None, None], x, 0)
 
 
-def ingest_fingerprint_batched(
-    raw, nv, rs_mat, tables, mid_rate, channels, n_frames, dec_factor=1,
-    with_flags=False, with_values=False,
-):
-    """Fused pipeline over a batch of lanes: (B, raw_len) int16 interleaved
-    samples at mid_rate * dec_factor, (B,) int32 valid frame counts ->
-    `_post_chroma`'s outputs. Samples past a lane's valid count are zeroed
-    before the decimation FIR, exactly like the canonical zero padding."""
+def _source_stage(raw, nv, channels, dec_factor):
+    """The source stage: (B, raw_len) int16 interleaved samples, (B,) int32
+    valid frame counts -> (B, raw_len // channels // dec_factor) int32 mono
+    at the mid rate. Samples past a lane's valid count are zeroed before
+    each half-band stage, exactly like the canonical zero padding; stereo
+    is downmixed after the decimation."""
     B = raw.shape[0]
     x = _mask_frames(raw.reshape(B, -1, channels).to(torch.int32), nv)
     if dec_factor > 1:
@@ -358,7 +360,21 @@ def ingest_fingerprint_batched(
             x = _mask_frames(x, nv1)
         x = _decimate2_hb_i32(x, *_halfband_q14(*_HB_MAIN))
         x = _mask_frames(x, nv1 // 2)
-    mono = (_downmix(x) if channels == 2 else x[..., 0]).to(torch.float32)
+    return _downmix(x) if channels == 2 else x[..., 0]
+
+
+def ingest_fingerprint_batched(
+    raw, nv, rs_mat, tables, mid_rate, channels, n_frames, dec_factor=1,
+    with_flags=False, with_values=False, source_end=None,
+):
+    """Fused pipeline over a batch of lanes: (B, raw_len) int16 interleaved
+    samples at mid_rate * dec_factor, (B,) int32 valid frame counts ->
+    `_source_stage` -> resample -> `_post_chroma`'s outputs. `source_end`,
+    a CUDA event, is recorded once the source stage is enqueued."""
+    mono = _source_stage(raw, nv, channels, dec_factor)
+    if source_end is not None:
+        source_end.record()
+    mono = mono.to(torch.float32)
     if mid_rate != SAMPLE_RATE:
         mono = _resample(mono, rs_mat, mid_rate, n_frames)
     pad_len = (n_frames + _ROWS_PER_FRAME + 1) * HOP_SIZE
@@ -369,9 +385,14 @@ def ingest_fingerprint_batched(
     )
 
 
-def _page_faults() -> int:
-    """Minor plus major page faults of the calling thread so far."""
-    r = resource.getrusage(resource.RUSAGE_THREAD)
+def _page_faults():
+    """Minor plus major page faults of the calling thread so far, or None
+    where `resource` cannot count a thread's: it has RUSAGE_THREAD on Linux
+    alone, and Windows has no `resource`."""
+    who = getattr(resource, "RUSAGE_THREAD", None)
+    if who is None:
+        return None
+    r = resource.getrusage(who)
     return r.ru_minflt + r.ru_majflt
 
 
@@ -466,9 +487,16 @@ class IngestDispatcher:
                         buf[r, :take] = s[:take]
                         buf[r, take : n * self.channels] = 0
                         copied += take * buf.itemsize
-                metrics.record("ingest.lane_copy_faults",
-                               float(_page_faults() - faults0))
+                if faults0 is not None:
+                    metrics.record("ingest.lane_copy_faults",
+                                   float(_page_faults() - faults0))
                 metrics.record("ingest.lane_bytes", float(copied))
+                # the source stage's work: the lanes' valid frames in, and
+                # the mid-rate mono samples they yield out
+                frames = nv_h[: len(segs)].astype(np.int64)
+                metrics.record("ingest.source_frames", float(frames.sum()))
+                metrics.record("ingest.mid_samples",
+                               float((frames // self.dec_factor).sum()))
             with span("ingest.upload"):
                 # from page-locked memory the copies are only enqueued; the
                 # event hands the slot on once they have read it
@@ -491,19 +519,21 @@ class IngestDispatcher:
         in_len *= self.channels * self.dec_factor
         raw, nv_d = self._stage(segs, in_len)
         with span("ingest.dispatch"):
-            # card time of the chunk's kernels, read once its download has
-            # been waited for (_collect_and_rescan): no synchronisation here
+            # card time of the chunk's kernels and of its source stage, read
+            # once its download has been waited for (_collect_and_rescan):
+            # no synchronisation here
             kernels = None
             if self.device.type == "cuda":
-                kernels = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
+                kernels = tuple(torch.cuda.Event(enable_timing=True)
+                                for _ in range(3))
                 kernels[0].record()
             out = ingest_fingerprint_batched(
                 raw, nv_d, self._rs_mat, self._tables, self.mid_rate,
                 self.channels, nf_b, self.dec_factor, with_flags=True,
+                source_end=kernels[1] if kernels else None,
             )
             if kernels:
-                kernels[1].record()
+                kernels[2].record()
             # the rescan needs each lane's raw segment again
             lanes = [(ref, self._out_lens[ref], s, n_valid)
                      for ref, (s, n_valid) in zip(refs, segs)]
@@ -536,7 +566,9 @@ class IngestDispatcher:
         """One chunk's ref -> uint32 hashes: its outputs cut to each lane's
         n_sub, the borderline-flagged ones recomputed with the canonical
         host oracle. On a card, `event` ends the chunk's download and
-        `kernels` brackets its kernels (counter ingest.kernels_card_s)."""
+        `kernels` are the events at the start of its kernels, at the end of
+        its source stage and at the end of its kernels (counters
+        ingest.decimate_card_s and ingest.kernels_card_s)."""
         from ..tracing import metrics, span
 
         from .ingest_oracle import ingest_hashes_ranges_oracle
@@ -544,8 +576,11 @@ class IngestDispatcher:
         with span("ingest.collect"):
             if event is not None:
                 event.synchronize()
+                start, source_end, end = kernels
                 metrics.record("ingest.kernels_card_s",
-                               kernels[0].elapsed_time(kernels[1]) / 1e3)
+                               start.elapsed_time(end) / 1e3)
+                metrics.record("ingest.decimate_card_s",
+                               start.elapsed_time(source_end) / 1e3)
             hashes = hashes.numpy()
             flag_rows = flag_rows.numpy()
             results, flags = {}, {}

@@ -4,7 +4,8 @@ and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
 against the same code on the CPU or the numpy oracle; the fused ingest's
 dispatches without a synchronisation, from page-locked slots; the card time of
-the fused ingest's kernels (`ingest.kernels_card_s`); NEEDLE_TPU_PROFILE's
+the fused ingest's kernels (`ingest.kernels_card_s`) and of their source stage
+on 48 kHz stereo (`ingest.decimate_card_s`); NEEDLE_TPU_PROFILE's
 trace of a search on the card, `parallel.distributed` over NCCL as a
 world of one, and the parity harness on every route. These tests need
 an NVIDIA GPU and nvcc; elsewhere they skip. This file imports no jax, so
@@ -381,6 +382,35 @@ def test_ingest_kernels_timed_on_card(dev, tmp_path, monkeypatch):
     total, count = metrics.snapshot()["ingest.kernels_card_s"]
     assert count > before[1]  # one reading a lane chunk
     assert 0 < total - before[0] < analyze_s
+
+
+def test_source_stage_timed_on_card(dev):
+    """ingest.decimate_card_s on 48 kHz stereo lanes (the /4 cascade and the
+    downmix): one reading a lane chunk, as ingest.kernels_card_s has, each
+    part above 0 and below the chunks' whole kernel time; the hashes are
+    the oracle's."""
+    from needle_tpu_torch.fingerprint import ingest_oracle as O
+    from needle_tpu_torch.fingerprint import torch_impl as T
+    from needle_tpu_torch.tracing import metrics
+
+    rng = np.random.default_rng(23)
+    segs = [(rng.standard_normal(48000 * 2 * 22) * 6000).astype(np.int16)
+            for _ in range(T.LANES + 1)]  # a full chunk and a partial one
+    T.fingerprint_ingest_batch(segs, 48000, 2, device="cuda")  # warm-up
+    names = ("ingest.decimate_card_s", "ingest.kernels_card_s")
+    before = [metrics.snapshot().get(k, (0.0, 0)) for k in names]
+    got = T.fingerprint_ingest_batch(segs, 48000, 2, device="cuda")
+    after = [metrics.snapshot()[k] for k in names]
+    (stage, n_stage), (kernels, n_kernels) = (
+        (a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before))
+    assert n_stage == n_kernels == 2
+    assert 0 < stage < kernels
+    d = T.IngestDispatcher(48000, 2, "cuda")
+    for g, s in zip(got, segs):
+        n_sub, nf_b = d.lane_geometry(len(s))
+        want = O.ingest_hashes_full_oracle(s, len(s), 48000, 2, d.dec_factor,
+                                           nf_b, n_sub)
+        np.testing.assert_array_equal(g, want)
 
 
 def test_nccl_world_of_one(dev):
