@@ -10,7 +10,8 @@ defining a deterministic, backend-independent canonical basis for the
 fused path's hashes. The device's f32 arithmetic approximates this basis
 within a measured error bound; hashes whose quantization lands within
 NEEDLE_TPU_EXACT_EPS of a classifier or norm-zeroing threshold are flagged
-on the device and recomputed here (torch_impl.IngestDispatcher), making the
+on the device and recomputed here (torch_impl.IngestDispatcher, from the
+device's own mid-rate samples: ingest_hashes_mid_oracle), making the
 fused path's output EXACTLY this oracle's output on every device. The
 arithmetic and its order of operations are needle_tpu's, so both packages
 rescan to the same hashes.
@@ -309,6 +310,80 @@ def _fingerprint_window_f32(mono_f32: np.ndarray, n_sub: int) -> np.ndarray:
     return classify(normalized)[:n_sub]
 
 
+def _rescan_spans(nf_bucket: int, ranges) -> list:
+    """The [t_lo, t_hi) 11025 Hz samples that each [lo, hi) range's
+    subfingerprints read: subfingerprint i depends on resampled samples
+    [i*HOP_SIZE, (i+19)*HOP_SIZE + FRAME_SIZE), cut at the lane's pad
+    length (the device program zero-extends there)."""
+    pad_len = (nf_bucket + _ROWS_PER_FRAME + 1) * HOP_SIZE
+    return [
+        (lo * HOP_SIZE,
+         min(pad_len, (hi - 1 + _RESCAN_EXTRA) * HOP_SIZE + FRAME_SIZE))
+        for lo, hi in ranges
+    ]
+
+
+def rescan_mid_rows(mid_rate: int, nf_bucket: int, ranges) -> list:
+    """The global mid-rate mono rows [g_lo, g_hi) that each [lo, hi) range
+    of a lane reads. With a resample stage, block b reads xpad[b*kM : b*kM
+    + kM + 2H] of the H-zero-prefixed mono, so rows [b_lo*kM - H, (b_hi-1)
+    *kM + kM + H) cover every block of the span; without one, the span's
+    own rows. Rows before 0 or past the lane's valid count are zeros."""
+    spans = _rescan_spans(nf_bucket, ranges)
+    if mid_rate == SAMPLE_RATE:
+        return spans
+    L, M, k, _ = _resample_matd(mid_rate)
+    H = _RS_HALF_TAPS
+    kM, kL = k * M, k * L
+    return [
+        ((t_lo // kL) * kM - H, ((t_hi - 1) // kL) * kM + kM + H)
+        for t_lo, t_hi in spans
+    ]
+
+
+def ingest_hashes_mid_oracle(
+    windows, mid_rate: int, nf_bucket: int, ranges
+) -> list:
+    """Canonical subfingerprints for several [lo, hi) ranges of one
+    fused-ingest lane, given each range's INTEGER mid-rate mono window:
+    rows rescan_mid_rows(mid_rate, nf_bucket, ranges) of the lane's source
+    stage output, as the device's source stage or _prepare_mid_window
+    computes them. The dependency window starts on a hop boundary and the
+    resample stage is a global-index-deterministic FIR, so the pipeline run
+    on that slice reproduces the global values exactly. The f64 filter
+    matrix stays cached across ranges (_resample_matd)."""
+    spans = _rescan_spans(nf_bucket, ranges)
+    if mid_rate != SAMPLE_RATE:
+        # the device program truncates the resample output to out_needed
+        # (== pad_len) and zero-extends; t_hi <= pad_len so nothing to do
+        L, M, k, matd = _resample_matd(mid_rate)
+        H = _RS_HALF_TAPS
+        kM, kL = k * M, k * L
+        out = []
+        for w, (t_lo, t_hi) in zip(windows, spans):
+            b_lo, b_hi = t_lo // kL, (t_hi - 1) // kL + 1
+            w = w.astype(np.float64)
+            it = w.strides[0]
+            W = np.ascontiguousarray(
+                np.lib.stride_tricks.as_strided(
+                    w,
+                    shape=(b_hi - b_lo, kM + 2 * H),
+                    strides=(it * kM, it),
+                )
+            )
+            Y = np.asarray(W @ matd).reshape(-1)  # (n_blocks * kL,) f64
+            out.append(
+                Y[t_lo - b_lo * kL : t_hi - b_lo * kL].astype(np.float32)
+            )
+    else:
+        # no resample stage: the span reads mono_mid[t_lo:t_hi] directly
+        out = [w.astype(np.float32) for w in windows]
+    return [
+        _fingerprint_window_f32(w, hi - lo)
+        for w, (lo, hi) in zip(out, ranges)
+    ]
+
+
 def ingest_hashes_ranges_oracle(
     segment_i16: np.ndarray,
     n_valid: int,
@@ -320,64 +395,19 @@ def ingest_hashes_ranges_oracle(
 ) -> list:
     """Canonical subfingerprints for several [lo, hi) ranges of one
     fused-ingest lane, each recomputed from only the raw samples it depends
-    on. Subfingerprint i depends on resampled samples
-    [i*HOP_SIZE, (i+19)*HOP_SIZE + FRAME_SIZE) and the dependency window
-    starts on a hop boundary, so the pipeline run on that slice reproduces
-    the global values exactly (the integer and resample stages are
-    global-index-deterministic FIRs). Each span's mid-rate mono is computed
+    on: each range's mid-rate mono window (rescan_mid_rows) is computed
     from ONLY the raw rows it depends on (_prepare_mid_window), so the
-    cost is O(flagged width), independent of lane length.
-    The f64 filter matrix stays cached across ranges (_resample_matd)."""
+    cost is O(flagged width), independent of lane length, and fed to
+    ingest_hashes_mid_oracle."""
     mid_rate = in_rate // dec_factor
-    _, in_len_mid, out_needed = _ingest_dims(mid_rate, nf_bucket)
-    pad_len = (nf_bucket + _ROWS_PER_FRAME + 1) * HOP_SIZE
-    spans = []
-    for lo, hi in ranges:
-        t_lo = lo * HOP_SIZE
-        t_hi = min(pad_len, (hi - 1 + _RESCAN_EXTRA) * HOP_SIZE + FRAME_SIZE)
-        spans.append((t_lo, t_hi))
-    if mid_rate != SAMPLE_RATE:
-        # the device program truncates the resample output to out_needed
-        # (== pad_len) and zero-extends; t_hi <= pad_len so nothing to do
-        L, M, k, matd = _resample_matd(mid_rate)
-        H = _RS_HALF_TAPS
-        kM, kL = k * M, k * L
-        windows = []
-        for t_lo, t_hi in spans:
-            b_lo, b_hi = t_lo // kL, (t_hi - 1) // kL + 1
-            # block b reads xpad[b*kM : b*kM + kM + 2H]; xpad is the
-            # H-zero-prefixed mono, so mono global rows
-            # [b_lo*kM - H, (b_hi-1)*kM + kM + H) cover every block
-            w = _prepare_mid_window(
-                segment_i16, n_valid, channels, dec_factor, in_len_mid,
-                b_lo * kM - H, (b_hi - 1) * kM + kM + H,
-            ).astype(np.float64)
-            it = w.strides[0]
-            W = np.ascontiguousarray(
-                np.lib.stride_tricks.as_strided(
-                    w,
-                    shape=(b_hi - b_lo, kM + 2 * H),
-                    strides=(it * kM, it),
-                )
-            )
-            Y = np.asarray(W @ matd).reshape(-1)  # (n_blocks * kL,) f64
-            windows.append(
-                Y[t_lo - b_lo * kL : t_hi - b_lo * kL].astype(np.float32)
-            )
-    else:
-        # no resample stage: the span reads mono_mid[t_lo:t_hi] directly
-        # (positions past the lane are zeros via the valid-count mask)
-        windows = [
-            _prepare_mid_window(
-                segment_i16, n_valid, channels, dec_factor, in_len_mid,
-                t_lo, t_hi,
-            ).astype(np.float32)
-            for t_lo, t_hi in spans
-        ]
-    return [
-        _fingerprint_window_f32(w, hi - lo)
-        for w, (lo, hi) in zip(windows, ranges)
+    _, in_len_mid, _ = _ingest_dims(mid_rate, nf_bucket)
+    windows = [
+        _prepare_mid_window(
+            segment_i16, n_valid, channels, dec_factor, in_len_mid, g_lo, g_hi
+        )
+        for g_lo, g_hi in rescan_mid_rows(mid_rate, nf_bucket, ranges)
     ]
+    return ingest_hashes_mid_oracle(windows, mid_rate, nf_bucket, ranges)
 
 
 def ingest_values_oracle(

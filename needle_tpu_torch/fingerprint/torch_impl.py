@@ -26,6 +26,7 @@ inside the margin.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -346,10 +347,11 @@ def _mask_frames(x: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
 
 def _source_stage(raw, nv, channels, dec_factor):
     """The source stage: (B, raw_len) int16 interleaved samples, (B,) int32
-    valid frame counts -> (B, raw_len // channels // dec_factor) int32 mono
-    at the mid rate. Samples past a lane's valid count are zeroed before
-    each half-band stage, exactly like the canonical zero padding; stereo
-    is downmixed after the decimation."""
+    valid frame counts -> (B, raw_len // channels // dec_factor) int16 mono
+    at the mid rate (exact: every half-band stage clips to the int16 range
+    and the downmix halves). Samples past a lane's valid count are zeroed
+    before each half-band stage, exactly like the canonical zero padding;
+    stereo is downmixed after the decimation."""
     B = raw.shape[0]
     x = _mask_frames(raw.reshape(B, -1, channels).to(torch.int32), nv)
     if dec_factor > 1:
@@ -360,20 +362,24 @@ def _source_stage(raw, nv, channels, dec_factor):
             x = _mask_frames(x, nv1)
         x = _decimate2_hb_i32(x, *_halfband_q14(*_HB_MAIN))
         x = _mask_frames(x, nv1 // 2)
-    return _downmix(x) if channels == 2 else x[..., 0]
+    return (_downmix(x) if channels == 2 else x[..., 0]).to(torch.int16)
 
 
 def ingest_fingerprint_batched(
     raw, nv, rs_mat, tables, mid_rate, channels, n_frames, dec_factor=1,
-    with_flags=False, with_values=False, source_end=None,
+    with_flags=False, with_values=False, source_end=None, mid_out=None,
 ):
     """Fused pipeline over a batch of lanes: (B, raw_len) int16 interleaved
     samples at mid_rate * dec_factor, (B,) int32 valid frame counts ->
     `_source_stage` -> resample -> `_post_chroma`'s outputs. `source_end`,
-    a CUDA event, is recorded once the source stage is enqueued."""
+    a CUDA event, is recorded once the source stage is enqueued; the
+    list `mid_out` receives the source stage's (B, in_len_mid) int16 mono,
+    kept on the device for the exact rescan."""
     mono = _source_stage(raw, nv, channels, dec_factor)
     if source_end is not None:
         source_end.record()
+    if mid_out is not None:
+        mid_out.append(mono)
     mono = mono.to(torch.float32)
     if mid_rate != SAMPLE_RATE:
         mono = _resample(mono, rs_mat, mid_rate, n_frames)
@@ -429,6 +435,10 @@ class IngestDispatcher:
         self._pending: dict = {}  # nf_bucket -> (refs, [(segment, n_valid)])
         self._chunks: list = []  # (chunk, its worker's future or None)
         self._pool = None  # the worker, started by the first chunk
+        # the worker's own stream for fetching rescan windows, so that its
+        # copies do not queue behind the chunks dispatched since
+        self._fetch_stream = (torch.cuda.Stream(self.device, priority=-1)
+                              if self.device.type == "cuda" else None)
         self._out_lens: dict = {}  # ref -> n_sub
         self._empty: dict = {}  # ref -> empty result
 
@@ -527,17 +537,18 @@ class IngestDispatcher:
                 kernels = tuple(torch.cuda.Event(enable_timing=True)
                                 for _ in range(3))
                 kernels[0].record()
+            # the source stage's output stays on the device until the
+            # worker has fetched the rescan's windows from it
+            mid = []
             out = ingest_fingerprint_batched(
                 raw, nv_d, self._rs_mat, self._tables, self.mid_rate,
                 self.channels, nf_b, self.dec_factor, with_flags=True,
-                source_end=kernels[1] if kernels else None,
+                source_end=kernels[1] if kernels else None, mid_out=mid,
             )
             if kernels:
                 kernels[2].record()
-            # the rescan needs each lane's raw segment again
-            lanes = [(ref, self._out_lens[ref], s, n_valid)
-                     for ref, (s, n_valid) in zip(refs, segs)]
-            chunk = (lanes, nf_b, *self._download(out), kernels)
+            lanes = [(ref, self._out_lens[ref]) for ref in refs]
+            chunk = (lanes, nf_b, mid, *self._download(out), kernels)
             future = None
             if self.threading:
                 if self._pool is None:
@@ -561,17 +572,19 @@ class IngestDispatcher:
         event.record()
         return (*host, event)
 
-    def _collect_and_rescan(self, lanes, nf_b, hashes, flag_rows,
+    def _collect_and_rescan(self, lanes, nf_b, mid, hashes, flag_rows,
                             event, kernels) -> dict:
         """One chunk's ref -> uint32 hashes: its outputs cut to each lane's
         n_sub, the borderline-flagged ones recomputed with the canonical
-        host oracle. On a card, `event` ends the chunk's download and
-        `kernels` are the events at the start of its kernels, at the end of
-        its source stage and at the end of its kernels (counters
-        ingest.decimate_card_s and ingest.kernels_card_s)."""
+        host oracle from the mid-rate windows of the chunk's source stage
+        output, the one tensor in the list `mid`, which is emptied. On a
+        card, `event` ends the chunk's download and `kernels` are the
+        events at the start of its kernels, at the end of its source stage
+        and at the end of its kernels (counters ingest.decimate_card_s and
+        ingest.kernels_card_s)."""
         from ..tracing import metrics, span
 
-        from .ingest_oracle import ingest_hashes_ranges_oracle
+        from .ingest_oracle import ingest_hashes_mid_oracle, rescan_mid_rows
 
         with span("ingest.collect"):
             if event is not None:
@@ -583,27 +596,73 @@ class IngestDispatcher:
                                start.elapsed_time(source_end) / 1e3)
             hashes = hashes.numpy()
             flag_rows = flag_rows.numpy()
-            results, flags = {}, {}
-            for r, (ref, n, _, _) in enumerate(lanes):
+            results, flags = {}, []
+            for r, (ref, n) in enumerate(lanes):
                 results[ref] = hashes[r, :n].astype(np.uint32)
-                flags[ref] = flag_rows[r, :n]
-        total = sum(int(f.sum()) for f in flags.values())
+                flags.append(flag_rows[r, :n])
+        total = sum(int(f.sum()) for f in flags)
         metrics.record("ingest.rescan_hashes", float(total))
+        source = mid.pop()
         if not total:
             return results
         with span("ingest.rescan", flagged=total):
-            for ref, _, segment, n_valid in lanes:
-                f = flags[ref]
-                if not f.any():
-                    continue
-                ranges = merge_flag_ranges(np.nonzero(f)[0])
-                outs = ingest_hashes_ranges_oracle(
-                    segment, n_valid, self.in_rate, self.channels,
-                    self.dec_factor, nf_b, ranges,
-                )
-                for (lo, hi), o in zip(ranges, outs):
-                    results[ref][lo:hi] = o
+            # lane row -> its merged flagged ranges
+            ranges = {r: merge_flag_ranges(np.nonzero(f)[0])
+                      for r, f in enumerate(flags) if f.any()}
+            rows = [(r, g_lo, g_hi) for r, rs in ranges.items()
+                    for g_lo, g_hi in rescan_mid_rows(self.mid_rate, nf_b, rs)]
+            with span("ingest.rescan_fetch"):
+                windows = iter(self._fetch_windows(
+                    source, rows, kernels[1] if kernels else None))
+                del source  # the device memory goes once fetched
+            with span("ingest.rescan_oracle"):
+                for r, rs in ranges.items():
+                    outs = ingest_hashes_mid_oracle(
+                        [next(windows) for _ in rs], self.mid_rate, nf_b, rs)
+                    ref = lanes[r][0]
+                    for (lo, hi), o in zip(rs, outs):
+                        results[ref][lo:hi] = o
         return results
+
+    def _fetch_windows(self, mid, rows, source_end) -> list:
+        """Rows [g_lo, g_hi) of lane r of `mid`, the chunk's (LANES,
+        in_len_mid) int16 source stage output, for each (r, g_lo, g_hi) of
+        `rows`, as int16 host arrays; rows before 0 or past the lane are
+        zeros. On a card they are gathered on the worker's own stream,
+        behind the chunk's source stage (`source_end`), and brought to
+        page-locked memory in one copy, waited for here; on the CPU the
+        same slices are taken directly. Counters
+        ingest.rescan_window_bytes and ingest.rescan_card_windows."""
+        from ..tracing import metrics
+
+        offs = np.cumsum([0] + [g_hi - g_lo for _, g_lo, g_hi in rows])
+        n_mid = mid.shape[1]
+        stream = self._fetch_stream
+        cuda = stream is not None
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            if cuda:
+                stream.wait_event(source_end)
+            flat = torch.zeros(int(offs[-1]), dtype=torch.int16,
+                               device=mid.device)
+            for (r, g_lo, g_hi), o in zip(rows, offs):
+                a, b = max(g_lo, 0), min(g_hi, n_mid)
+                if b > a:
+                    flat[o + a - g_lo : o + b - g_lo] = mid[r, a:b]
+            if cuda:
+                host = torch.empty(flat.shape, dtype=torch.int16,
+                                   pin_memory=True)
+                host.copy_(flat, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+        if cuda:
+            done.synchronize()
+            flat = host
+        metrics.record("ingest.rescan_window_bytes",
+                       float(flat.numel() * flat.element_size()))
+        metrics.record("ingest.rescan_card_windows", float(len(rows)))
+        flat = flat.numpy()
+        return [flat[o : o + g_hi - g_lo]
+                for (_, g_lo, g_hi), o in zip(rows, offs)]
 
     def finish(self) -> dict:
         """Flush partial chunks, collect everything. Returns ref->hashes;

@@ -3,7 +3,8 @@ plain PyTorch version and against the previous design (batch_counts_popc),
 and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
 against the same code on the CPU or the numpy oracle; the fused ingest's
-dispatches without a synchronisation, from page-locked slots; the card time of
+dispatches without a synchronisation, from page-locked slots; the exact
+rescan from the card's own mid-rate windows; the card time of
 the fused ingest's kernels (`ingest.kernels_card_s`) and of their source stage
 on 48 kHz stereo (`ingest.decimate_card_s`); NEEDLE_TPU_PROFILE's
 trace of a search on the card, `parallel.distributed` over NCCL as a
@@ -198,27 +199,49 @@ def test_ingest_on_card_equals_oracle(dev):
         assert np.max(np.abs(vals - ref)) < 5e-6
 
 
-def test_ingest_rescan_worker_on_card(dev, monkeypatch):
+@pytest.mark.parametrize("rate,channels", [(16000, 1), (48000, 2)])
+def test_ingest_rescan_worker_on_card(dev, monkeypatch, rate, channels):
     """Chunks downloaded through pinned memory and rescanned on the worker
     while later chunks run: with every hash flagged, the card's hashes
-    equal the inline (threading=False) path's and the oracle's."""
+    equal the inline (threading=False) path's and the oracle's. The rescan
+    reads each lane's mid-rate window from the card's own source stage
+    output (one window a lane, one fetch a chunk) and prepares none on the
+    host."""
     from needle_tpu_torch.fingerprint import ingest_oracle as O
     from needle_tpu_torch.fingerprint import torch_impl as T
+    from needle_tpu_torch.tracing import metrics
 
     monkeypatch.setattr(T, "LANES", 2)
     monkeypatch.setenv("NEEDLE_TPU_EXACT_EPS", "1e30")
+    prepared = []
+    prepare = O._prepare_mid_window
+
+    def spy(*args, **kw):
+        prepared.append(args)
+        return prepare(*args, **kw)
+
+    monkeypatch.setattr(O, "_prepare_mid_window", spy)
     rng = np.random.default_rng(13)
-    segs = [(rng.standard_normal(16000 * s) * 6000).astype(np.int16)
+    segs = [(rng.standard_normal(rate * channels * s) * 6000).astype(np.int16)
             for s in (5, 25, 6, 25, 9)]
-    got = T.fingerprint_ingest_batch(segs, 16000, 1, device="cuda")
-    d = T.IngestDispatcher(16000, 1, "cuda", threading=False)
+    names = ("ingest.rescan_card_windows", "ingest.rescan_window_bytes",
+             "ingest.rescan_fetch")
+    before = [metrics.snapshot().get(k, (0.0, 0)) for k in names]
+    got = T.fingerprint_ingest_batch(segs, rate, channels, device="cuda")
+    (windows, n_w), (nbytes, _), (_, n_fetch) = (
+        (a[0] - b[0], a[1] - b[1])
+        for a, b in zip([metrics.snapshot()[k] for k in names], before))
+    assert prepared == []
+    # buckets 160 (5, 6 and 9 s: two chunks) and 224 (25 s: one chunk)
+    assert (windows, n_w, n_fetch) == (5, 3, 3) and nbytes > 0
+    d = T.IngestDispatcher(rate, channels, "cuda", threading=False)
     for i, s in enumerate(segs):
         d.add(i, s)
     inline = d.finish()
     for i, s in enumerate(segs):
         n_sub, nf_b = d.lane_geometry(len(s))
-        want = O.ingest_hashes_full_oracle(s, len(s), 16000, 1, d.dec_factor,
-                                           nf_b, n_sub)
+        want = O.ingest_hashes_full_oracle(s, len(s), rate, channels,
+                                           d.dec_factor, nf_b, n_sub)
         np.testing.assert_array_equal(got[i], want)
         np.testing.assert_array_equal(inline[i], want)
 

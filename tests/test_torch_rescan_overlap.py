@@ -110,7 +110,7 @@ def test_worker_error_fails_finish(segs, paranoid, monkeypatch):
     from needle_tpu_torch.fingerprint import ingest_oracle
 
     raised = threading.Event()
-    orig = ingest_oracle.ingest_hashes_ranges_oracle
+    orig = ingest_oracle.ingest_hashes_mid_oracle
 
     def boom(*args, **kw):
         if threading.current_thread() is not threading.main_thread():
@@ -118,7 +118,7 @@ def test_worker_error_fails_finish(segs, paranoid, monkeypatch):
             raise RuntimeError("rescan failed")
         return orig(*args, **kw)
 
-    monkeypatch.setattr(ingest_oracle, "ingest_hashes_ranges_oracle", boom)
+    monkeypatch.setattr(ingest_oracle, "ingest_hashes_mid_oracle", boom)
     d = T.IngestDispatcher(16000, 1, "cpu")
     for i, s in enumerate(segs):
         d.add(i, s)
