@@ -36,14 +36,11 @@ numpy search engine. On the same season:
 
 Then the library path:
 
-- long bucket: the count walk at n_pad 32,768 against its plain version
-  and the previous design, and a 2-episode search whose sides bucket
-  there;
+- long bucket: the count walk at n_pad 32,768 against its plain version,
+  and a 2-episode search whose sides bucket there;
 - library: bench.py's `mixed1000` library (1000 episodes x 2400 hashes,
   20 shows, 499,500 pairs) searched by the auto route (direct flagging)
-  and by walk-all (then walk-all once more, every launch replayed on the
-  previous design of the count walk kernel, compared and timed), and its
-  first 300 episodes by the band-mask route;
+  and by walk-all, and its first 300 episodes by the band-mask route;
 - bench: the benchmark's mixed1000 configuration, one trial (256 of its
   pairs held exactly against the NumPy count);
 - bench: the benchmark's small3 cell, one trial: 3 x 1440 s episodes the
@@ -51,23 +48,23 @@ Then the library path:
   its own, analyzed through the raw route and searched (all 3 pairs exact
   against the NumPy count), launching the count walk;
 - mono route: the season at 11025 Hz mono through the pre-decoded mono
-  fingerprint path and the search.
+  fingerprint path (lanes of the fused ingest at 11025 Hz) and the
+  search.
 
 The script imports nothing of jax and nothing of needle_tpu (the JAX
 package): its references are the port's own (NumpySearchEngine,
 fingerprint_numpy, the canonical ingest oracle), and it fails if either
 package was loaded by its end. Every phase raises on failure: the script
 then exits nonzero and prints no result. The count walk's phases print,
-per timed shape, the count walk kernel's time beside its previous design's
-(`batch_counts_popc`, timed in turns in the same process), the cells the
-kernel walked (valid (i, j) cells of the real pairs on unmasked row
-blocks), cells/s, and the least time the card
-could take for them: the larger of 64 int8 operations per cell (a 32-deep
-+/-1 dot product) at 1,979 TOP/s and the bytes the call moves (hash rows
-in, counts out) at 3.35 TB/s, the H100 SXM's published peaks. On success
-the line before the last is a JSON object describing each kernel
-(launches on the main path, error against the plain version, times of
-both, the previous design's time, the bound) and the last line is
+per timed shape, the count walk kernel's time beside its plain version's,
+the cells the kernel walked (valid (i, j) cells of the real pairs on
+unmasked row blocks), cells/s, and the least time the card could take for
+them: the larger of 64 int8 operations per cell (a 32-deep +/-1 dot
+product) at 1,979 TOP/s and the bytes the call moves (hash rows in,
+counts out) at 3.35 TB/s, the H100 SXM's published peaks. On success the
+line before the last is a JSON object describing each kernel (launches on
+the main path, error against the plain version, times of both, the bound)
+and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
@@ -136,10 +133,10 @@ def _median_ms(torch, fn, reps):
     return sorted(times)[len(times) // 2]
 
 
-def log_bound(label, launches, ms, cells, moved, prev_ms=None):
+def log_bound(label, launches, ms, cells, moved):
     """Log cells/s and the bound of `launches` count walk launches that
-    took `ms` of kernel time (and `prev_ms` on the previous design); return
-    (bound ms, "operations" or "bytes"): the larger of the cells' int8
+    took `ms` of kernel time; return (bound ms, "operations" or
+    "bytes"): the larger of the cells' int8
     operations at the card's peak and the moved bytes at its memory rate
     (needle_tpu_torch.bench.count_walk)."""
     from needle_tpu_torch.bench.count_walk import walk_bound
@@ -149,10 +146,6 @@ def log_bound(label, launches, ms, cells, moved, prev_ms=None):
         f"{cells} cells walked, {cells / (ms * 1e-3):.4g} cells/s; bound "
         f"{bound_ms:.4f} ms (set by {bound_by}), kernel at "
         f"{bound_ms / ms:.4f} of it")
-    if prev_ms is not None:
-        log(f"count walk {label}, previous design: {prev_ms:.4f} ms, "
-            f"{cells / (prev_ms * 1e-3):.4g} cells/s, at {bound_ms / prev_ms:.4f} "
-            f"of the bound; speed-up {prev_ms / ms:.3f}x")
     return bound_ms, bound_by
 
 
@@ -168,28 +161,17 @@ def all_pairs_cells(lengths):
     return (sum(m) ** 2 - sum(x * x for x in m)) // 2
 
 
-def _kernel_vs_previous(torch, D, args, reps):
-    """Median ms of the count walk kernel and of its previous design on
-    the same operands, timed in turns: new, old, new, old. Returns (best
-    new, best old, both lists)."""
-    new, old = [], []
-    for _ in range(2):
-        new.append(_median_ms(torch, lambda: D.batch_counts(*args), reps))
-        old.append(_median_ms(torch, lambda: D.batch_counts_popc(*args), reps))
-    return min(new), min(old), new, old
-
-
 def kernel_phase(torch, np):
-    """The count walk kernel against batch_counts_reference and against
-    the previous design on the card, exactly, at the season's shapes;
-    median times of all three, and the kernel's bound."""
+    """The count walk kernel against batch_counts_reference on the card,
+    exactly, at the season's shapes; median times of both, and the
+    kernel's bound."""
     from needle_tpu_torch.bench.count_walk import walk_bytes, walked_cells
     from needle_tpu_torch.search import diag_runs as D
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda", 0)
-    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}, "prev_ms": {},
-              "cells": {}, "bound_ms": {}, "bound_by": {}}
+    result = {"max_abs_err": 0, "ms": {}, "plain_ms": {}, "cells": {},
+              "bound_ms": {}, "bound_by": {}}
     for n_pad in N_PADS:
         src = rng.integers(0, 2**32, size=(LANES, n_pad), dtype=np.uint32)
         dst = rng.integers(0, 2**32, size=(LANES, n_pad), dtype=np.uint32)
@@ -220,34 +202,31 @@ def kernel_phase(torch, np):
         got = D.batch_counts(*args)
         torch.cuda.synchronize()
         want = D.batch_counts_reference(*args)
-        prev = D.batch_counts_popc(*args)
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item())
         flagged = int((want > 0).sum().item())
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"count walk kernel != reference at n_pad {n_pad}")
-        if not torch.equal(got, prev):
-            raise AssertionError(f"count walk kernel != previous design at n_pad {n_pad}")
         if flagged < PAIRS:
             raise AssertionError(f"only {flagged} flagged diagonals at n_pad {n_pad}")
         result["max_abs_err"] = max(result["max_abs_err"], err)
-        # plain first and last; kernel and previous design in turns between
+        # plain first and last; the kernel twice between
         plain = [_median_ms(torch, lambda: D.batch_counts_reference(*args), 3)]
-        ms, prev_ms, kern, old = _kernel_vs_previous(torch, D, args, 20)
+        kern = [_median_ms(torch, lambda: D.batch_counts(*args), 20)
+                for _ in range(2)]
         plain.append(_median_ms(torch, lambda: D.batch_counts_reference(*args), 3))
-        result["ms"][n_pad], result["prev_ms"][n_pad] = ms, prev_ms
+        ms = result["ms"][n_pad] = min(kern)
         result["plain_ms"][n_pad] = min(plain)
         log(
             f"count walk n_pad {n_pad}, {LANES} lanes ({PAIRS} pairs): kernel "
-            f"== reference == previous design on {flagged} flagged diagonals; "
-            f"kernel {kern} ms, previous design {old} ms, plain {plain} ms "
-            f"(median per call, two rounds)"
+            f"== reference on {flagged} flagged diagonals; kernel {kern} ms, "
+            f"plain {plain} ms (median per call, two rounds)"
         )
         cells = walked_cells(nv, mv, bm, n_pad, PAIRS)
         result["cells"][n_pad] = cells
         result["bound_ms"][n_pad], result["bound_by"][n_pad] = log_bound(
             f"{LANES} x {n_pad}", 1, ms, cells,
-            walk_bytes(LANES, n_pad, int(got.shape[1])), prev_ms,
+            walk_bytes(LANES, n_pad, int(got.shape[1])),
         )
     return result
 
@@ -705,8 +684,8 @@ def capi_phase(torch, np, paths, workdir: Path, season_launches):
 def parity_phase(torch):
     """needle_tpu_torch.parity on the card with every route and leg at its
     defaults (trials 6, eps seconds 120): RunEntry-exact on every route under the
-    kernel, its previous design and the plain version; value errors under
-    half the margin; hashes bit-exact on both ingest routes."""
+    kernel and the plain version; value errors under half the margin;
+    hashes bit-exact on the mono route and the 44.1 kHz stereo ingest."""
     from needle_tpu_torch import parity
     from needle_tpu_torch.search import diag_runs
 
@@ -752,10 +731,9 @@ def _to_card(torch, np, a):
 
 
 def long_bucket_phase(torch, np):
-    """The count walk at n_pad 32,768 against its plain version and the
-    previous design, exactly: a full-mask lane, a lane with a gapped mask,
-    a padding lane. Then a 2-episode search whose sides (30,000 hashes)
-    bucket to 32,768."""
+    """The count walk at n_pad 32,768 against its plain version, exactly:
+    a full-mask lane, a lane with a gapped mask, a padding lane. Then a
+    2-episode search whose sides (30,000 hashes) bucket to 32,768."""
     from needle_tpu_torch.comparator import Comparator
     from needle_tpu_torch.data import FrameHashes
     from needle_tpu_torch.bench.count_walk import walk_bytes, walked_cells
@@ -776,27 +754,25 @@ def long_bucket_phase(torch, np):
     got = D.batch_counts(*args)
     torch.cuda.synchronize()
     want = D.batch_counts_reference(*args)
-    prev = D.batch_counts_popc(*args)
     torch.cuda.synchronize()
     err = int((got - want).abs().max().item())
     flagged = int((want > 0).sum().item())
     if err != 0 or not torch.equal(got, want):
         raise AssertionError(f"count walk kernel != reference at n_pad {n_pad}")
-    if not torch.equal(got, prev):
-        raise AssertionError(f"count walk kernel != previous design at n_pad {n_pad}")
     if not want[0].any() or got[2].any():
         raise AssertionError(
             f"n_pad {n_pad}: the planted run of lane 0 was not flagged, or "
             "the padding lane was"
         )
     plain = _median_ms(torch, lambda: D.batch_counts_reference(*args), 1)
-    kern, prev_ms, kerns, olds = _kernel_vs_previous(torch, D, args, 10)
-    log(f"count walk n_pad {n_pad}, 3 lanes: kernel == reference == previous "
-        f"design on {flagged} flagged diagonals; kernel {kerns} ms, previous "
-        f"design {olds} ms, plain {plain:.1f} ms")
+    kerns = [_median_ms(torch, lambda: D.batch_counts(*args), 10)
+             for _ in range(2)]
+    kern = min(kerns)
+    log(f"count walk n_pad {n_pad}, 3 lanes: kernel == reference on {flagged} "
+        f"flagged diagonals; kernel {kerns} ms, plain {plain:.1f} ms")
     cells = walked_cells(nv, mv, bm, n_pad, 2)  # lane 2 is padding
     bound_ms, bound_by = log_bound(f"3 x {n_pad}", 1, kern, cells,
-                                   walk_bytes(3, n_pad, int(got.shape[1])), prev_ms)
+                                   walk_bytes(3, n_pad, int(got.shape[1])))
 
     n = LONG_HASHES
     shared = rng.integers(0, 2**32, size=400, dtype=np.uint32)
@@ -823,16 +799,14 @@ def long_bucket_phase(torch, np):
         raise AssertionError(f"long-bucket search found {len(res)} of 2 runs")
     log(f"long-bucket search: 2 x {n} hashes (n_pad {n_pad}), planted run "
         f"found in both, {launches} kernel launches")
-    return {"ms": kern, "prev_ms": prev_ms, "plain_ms": plain, "max_abs_err": err,
+    return {"ms": kern, "plain_ms": plain, "max_abs_err": err,
             "cells": cells, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _library_search(torch, fhs, env, prev=False):
+def _library_search(torch, fhs, env):
     """One search of `fhs` on the card with `env` set: (entries per pair,
     SearchResults, wall s, search.prefilter s, count walk launches and
-    their timer, direct items, walk calls that got band masks). With
-    `prev`, every count walk launch is replayed on the previous design
-    (WalkTimer)."""
+    their timer, direct items, walk calls that got band masks)."""
     from needle_tpu_torch.bench.count_walk import WalkTimer
     from needle_tpu_torch.comparator import Comparator
     from needle_tpu_torch.search import diag_runs as D
@@ -856,7 +830,7 @@ def _library_search(torch, fhs, env, prev=False):
         D.LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with WalkTimer(prev=prev) as timer:
+        with WalkTimer() as timer:
             infos = cmp.search_pair_infos(fhs, pairs)
         data = [(i, j, info) for (i, j), info in zip(pairs, infos)
                 if not info.is_empty()]
@@ -914,15 +888,6 @@ def library_phase(torch, np):
     log_timer(walk["timer"], "of mixed1000 walk-all", lib_cells)
     if auto["entries"] != walk["entries"] or auto["results"] != walk["results"]:
         raise AssertionError("mixed1000: direct route != walk-all")
-    # walk-all again, each launch also on the previous design, in turns
-    replay = _library_search(torch, fhs, {"NEEDLE_TPU_SEARCH_PREFILTER": "off"},
-                             prev=True)
-    if replay["entries"] != walk["entries"] or replay["results"] != walk["results"]:
-        raise AssertionError("mixed1000: the replayed walk-all differs")
-    timer = replay["timer"]
-    walk_ms, walk_prev_ms = timer.ms(), timer.ms(timer.prev_events)
-    log_bound("of mixed1000 walk-all, replayed beside the previous design",
-              len(timer.events), walk_ms, lib_cells, timer.moved, walk_prev_ms)
     if len(auto["results"]) != LIB_EPISODES:
         raise AssertionError(f"mixed1000: {len(auto['results'])} results")
     for (op, _), (s0, s1) in zip(auto["results"], truth):
@@ -1093,7 +1058,6 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"][n_pad],
-        "prev_ms": kernel["prev_ms"][n_pad],
         "plain_ms": kernel["plain_ms"][n_pad],
         "bound_ms": kernel["bound_ms"][n_pad],
         "bound_by": kernel["bound_by"][n_pad],

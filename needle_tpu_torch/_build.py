@@ -37,7 +37,6 @@ SIGNATURES = {
     # nv, mv, lm, thr, bm, n_groups, src, dst, counts, chunk, n_pad, n_out,
     # stream
     "needle_diag_runs": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
-    "needle_diag_runs_popc": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -14,19 +14,17 @@ runs:
 needle_tpu's "jax" backend has no counterpart and is refused. "numpy" and
 "chromaprint" take needle_tpu's host route for every file: decode (WAV and
 raw PCM through the native resampler too) to 11025 Hz stereo, fingerprint
-one video per thread. The device routes of "auto":
+one video per thread. "auto" sends every episode's windows through one
+`fingerprint.torch_impl.IngestDispatcher` per source format, which batches
+them into lane chunks, runs decimation, downmix, resampling and the
+fingerprint on the device and rescans borderline hashes exactly on the
+host:
 
   * Raw-PCM sources (WAV, .pcm, .raw) are read as memmaps at their own
-    rate and go through `fingerprint.torch_impl.IngestDispatcher`:
-    decimation, downmix, resampling and fingerprinting all run on the
-    device.
+    rate and channel count.
   * Compressed media (.mkv, .mp4, ...) is decoded on the host by the
-    native FFmpeg layer (`ingest`) to 11025 Hz stereo, downmixed to mono,
-    and fingerprinted by `fingerprint.torch_impl.fingerprint_batch` on the
-    device.
-
-On both device routes borderline hashes are rescanned exactly on the
-host.
+    native FFmpeg layer (`ingest`) to 11025 Hz stereo and downmixed to
+    mono: lanes of the 11025 Hz mono dispatcher.
 
 Timestamp math replicates the reference exactly (analyzer.rs:286-318):
   delay = 28666 samples, item duration = 1365 samples (chromaprint TEST2),
@@ -52,7 +50,7 @@ from .duration import Duration
 from .errors import AnalyzerMissingPaths
 from .fingerprint.constants import DELAY_SAMPLES, ITEM_DURATION_SAMPLES, SAMPLE_RATE
 from .fingerprint.numpy_impl import downmix_stereo_i16
-from .fingerprint.torch_impl import IngestDispatcher, fingerprint_batch
+from .fingerprint.torch_impl import IngestDispatcher
 from .util import compute_header_md5sum
 
 # chromaprint-rust converts chromaprint's delay/item counters to Durations,
@@ -433,41 +431,35 @@ class Analyzer:
         from .tracing import carry, span
 
         def prepare(path):
-            """("cached", FrameHashes) or (md5, seek_to, has_ending, "raw",
-            raw segments) or (md5, seek_to, has_ending, "decoded", (opening
-            mono, ending mono or None))."""
+            """("cached", FrameHashes) or (md5, seek_to, has_ending,
+            (opening segment, its n_valid, ending segment or None, its
+            n_valid, rate, channels)): a raw-PCM file's windows at its own
+            rate, or compressed media's decoded and downmixed to 11025 Hz
+            mono (n_valid None: all of it)."""
             md5 = compute_header_md5sum(path)
             cached = self._cached(path, md5)
             if cached is not None:
                 return ("cached", cached)
             if self._use_device_ingest(path):
                 segs = self._raw_segments(path)
-                return (md5, segs[6], segs[2] is not None, "raw", segs[:6])
+                return (md5, segs[6], segs[2] is not None, segs[:6])
             opening_pcm, ending_pcm, _, seek_to = self._decode_segments(path)
-            monos = (
-                downmix_stereo_i16(opening_pcm),
-                None if ending_pcm is None else downmix_stereo_i16(ending_pcm),
-            )
-            return (md5, seek_to, ending_pcm is not None, "decoded", monos)
+            ending = (None if ending_pcm is None
+                      else downmix_stereo_i16(ending_pcm))
+            return (md5, seek_to, ending is not None,
+                    (downmix_stereo_i16(opening_pcm), None, ending, None,
+                     SAMPLE_RATE, 1))
 
         dispatchers: dict = {}  # (rate, channels) -> IngestDispatcher
-        mono_segments: List[np.ndarray] = []
-        mono_refs: List[tuple] = []  # (video index, "opening" / "ending")
         prepped: List[tuple] = []
 
         def consume(vi: int, item: tuple) -> None:
-            # each episode's raw windows join the device lane chunks as soon
-            # as it is read, so reads overlap the dispatches
+            # each episode's windows join the device lane chunks as soon as
+            # it is read, so reads overlap the dispatches
             prepped.append(item)
             if item[0] == "cached":
                 return
-            if item[3] == "decoded":
-                for side, mono in zip(("opening", "ending"), item[4]):
-                    if mono is not None:
-                        mono_segments.append(mono)
-                        mono_refs.append((vi, side))
-                return
-            op_seg, op_nv, en_seg, en_nv, rate, channels = item[4]
+            op_seg, op_nv, en_seg, en_nv, rate, channels = item[3]
             d = dispatchers.get((rate, channels))
             if d is None:
                 d = dispatchers[(rate, channels)] = IngestDispatcher(
@@ -496,12 +488,9 @@ class Analyzer:
 
         hashes_by_ref = {}
         with span(
-            "analyze.fingerprint", mono=len(mono_segments),
-            raw=sum(len(d._out_lens) for d in dispatchers.values()),
+            "analyze.fingerprint",
+            lanes=sum(len(d._out_lens) for d in dispatchers.values()),
         ):
-            if mono_segments:
-                outs = fingerprint_batch(mono_segments, self.device)
-                hashes_by_ref.update(zip(mono_refs, outs))
             for d in dispatchers.values():
                 hashes_by_ref.update(d.finish())
 

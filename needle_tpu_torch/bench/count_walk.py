@@ -63,47 +63,27 @@ class WalkTimer:
     around it (no synchronisation inside the run), adds up the bytes each
     launch moves and keeps each launch's lengths and masks for
     `cells()`. Use as a context manager around a search on the card; it
-    rebinds `search.torch_impl.batch_counts`. With `prev=True` every launch
-    is also run on the previous design of the kernel (batch_counts_popc, in
-    turns: new first on even launches, old first on odd ones), timed, and
-    held exactly against it; that search's wall then measures nothing."""
+    rebinds `search.torch_impl.batch_counts`."""
 
-    def __init__(self, prev: bool = False):
-        self.prev = prev
+    def __init__(self):
         self.events = []
-        self.prev_events = []
         self.moved = 0
         self.launched = []  # (nv, mv, bm, n_pad) of each launch
 
     def __enter__(self):
         import torch
 
-        from ..search import diag_runs as D
         from ..search import torch_impl as T
 
         self.real = T.batch_counts
 
-        def timed(fn, events, args):
+        def counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(*args[:7], bm=args[7])
+            out = self.real(nv, mv, lm, thr, src, dst, n_pad, bm=bm)
             end.record()
-            events.append((start, end))
-            return out
-
-        def counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
-            args = (nv, mv, lm, thr, src, dst, n_pad, bm)
-            new_first = len(self.events) % 2 == 0
-            if self.prev and not new_first:
-                old = timed(D.batch_counts_popc, self.prev_events, args)
-            out = timed(self.real, self.events, args)
-            if self.prev and new_first:
-                old = timed(D.batch_counts_popc, self.prev_events, args)
-            if self.prev and not torch.equal(out, old):
-                raise AssertionError(
-                    f"count walk kernel != previous design at launch "
-                    f"{len(self.events)} (n_pad {n_pad})")
+            self.events.append((start, end))
             self.moved += walk_bytes(src.shape[0], n_pad, out.shape[1])
             self.launched.append((nv, mv, bm, n_pad))
             return out
@@ -116,13 +96,12 @@ class WalkTimer:
 
         T.batch_counts = self.real
 
-    def ms(self, events=None) -> float:
+    def ms(self) -> float:
         """Kernel milliseconds of the timed launches, in all."""
         import torch
 
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in
-                   (self.events if events is None else events))
+        return sum(s.elapsed_time(e) for s, e in self.events)
 
     def cells(self) -> int:
         """Cells walked by the timed launches, from their lengths and

@@ -122,9 +122,8 @@ EXACT_SAME_SHOW, EXACT_OTHER = 192, 64
 STAGE_KEYS = (
     "ingest.read_raw", "ingest.batch_assemble", "ingest.upload",
     "ingest.dispatch", "ingest.collect", "ingest.rescan", "analyze.decode",
-    "analyze.fingerprint", "analyze.assemble", "fingerprint.rescan",
-    "search.pairs", "search.prefilter", "search.walk", "search.extract",
-    "search.entries",
+    "analyze.fingerprint", "analyze.assemble", "search.pairs",
+    "search.prefilter", "search.walk", "search.extract", "search.entries",
 )
 COUNT_KEYS = ("ingest.upload_bytes", "search.direct_items",
               "search.prefilter_skipped")

@@ -10,9 +10,9 @@ editing the source text, into a temporary directory) and times each on
 the same operands: 512 lanes at n_pad 2560, random rows, every lane fully
 valid, thr 10, l_min 81. A variant's counts are wrong; only its time
 means something. Variants: the kernel; without the staging; without the
-walk (the tensor-core products); without the run step; the walk alone;
-and the previous design (batch_counts_popc). Two rounds, in turns; prints
-each median (of 10 launches per round, CUDA events) in ms.
+walk (the tensor-core products); without the run step; and the walk
+alone. Two rounds, in turns; prints each median (of 10 launches per
+round, CUDA events) in ms.
 """
 
 from __future__ import annotations
@@ -108,8 +108,6 @@ def main() -> int:
                 nv.data_ptr(), nv.data_ptr(), lm.data_ptr(), thr.data_ptr(),
                 bm.data_ptr(), bm.shape[1], src.data_ptr(), dst.data_ptr(),
                 out.data_ptr(), lanes, n_pad, n_out, stream), "variant"))
-        calls["previous design"] = lambda: D.batch_counts_popc(
-            nv, nv, lm, thr, src, dst, n_pad, bm)
         print(f"card: {torch.cuda.get_device_name(0)}; {lanes} lanes x n_pad "
               f"{n_pad}, thr 10, l_min 81", flush=True)
         for rnd in range(2):

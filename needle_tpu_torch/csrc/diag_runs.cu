@@ -66,11 +66,6 @@
 // bound; the staging and the run step, which keep the tensor cores idle,
 // hold it lower (needle_tpu_torch/bench/walk_parts.py takes the phases
 // apart). wgmma and TMA lift the first limit.
-//
-// The previous design (diag_runs_kernel / diag_runs_blocked_kernel behind
-// needle_diag_runs_popc: one thread per diagonal, a __popc per cell, capped
-// near 4.2e12 cells/s by __popc's 16 per clock per SM) stays compiled as a
-// yardstick only; nothing on the port's search path launches it.
 
 #include <cuda_runtime.h>
 
@@ -390,148 +385,6 @@ diag_runs_mma_kernel(const int32_t* __restrict__ nv,
   if (d < n_out) counts[static_cast<size_t>(p) * n_out + d] = cand;
 }
 
-// ---- the previous design, kept as a yardstick ------------------------------
-
-constexpr int kThreads = 256;  // diagonals per thread block
-constexpr int kStageDst = kDTile + kThreads - 1;  // dst words per row block
-constexpr size_t kDefaultSmemBytes = 48 * 1024;
-constexpr size_t kMaxSmemBytes = 232448;  // 227 KB opt-in limit on sm_90
-
-// One thread per diagonal walks its valid rows, a __popc per cell; the
-// pair's two hash rows staged whole in shared memory (8 * n_pad bytes).
-__global__ void __launch_bounds__(kThreads)
-diag_runs_kernel(const int32_t* __restrict__ nv, const int32_t* __restrict__ mv,
-                 const int32_t* __restrict__ lm, const int32_t* __restrict__ thr,
-                 const int32_t* __restrict__ bm, int n_groups,
-                 const uint32_t* __restrict__ src,
-                 const uint32_t* __restrict__ dst,
-                 int32_t* __restrict__ counts, int n_pad, int n_out) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* s_src = smem;
-  uint32_t* s_dst = smem + n_pad;
-  const int p = blockIdx.y;
-  const uint32_t* g_src = src + static_cast<size_t>(p) * n_pad;
-  const uint32_t* g_dst = dst + static_cast<size_t>(p) * n_pad;
-  for (int k = threadIdx.x; k < n_pad; k += kThreads) {
-    s_src[k] = g_src[k];
-    s_dst[k] = g_dst[k];
-  }
-  __syncthreads();
-
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= n_out) return;
-  const int o = d - (n_pad - 1);
-  int cand = 0;
-  if (d < 2 * n_pad - 1) {
-    const int l_min = max(lm[p], 1);
-    const int t = thr[p];
-    // arithmetic shift of a signed mask: -1 (every block) reads 1 at bit 31
-    const int bits =
-        bm[static_cast<size_t>(p) * n_groups + d / (kGTiles * kDTile)];
-    const int lo = max(1, 1 - o);
-    const int hi = min(min(nv[p], n_pad), min(mv[p], n_pad) - o);  // exclusive
-    int run = 0;
-    if (lo < hi) {
-      for (int b = (lo + 1) / kDTile; b <= hi / kDTile; ++b) {
-        if (((bits >> min(b, 31)) & 1) == 0) {
-          cand += run >= l_min;  // flush the carry at the gap
-          run = 0;
-          continue;
-        }
-        const int r0 = max(lo, b * kDTile - 1);
-        const int r1 = min(hi, (b + 1) * kDTile - 1);
-        for (int i = r0; i < r1; ++i) {
-          const bool match = __popc(s_src[i] ^ s_dst[i + o]) <= t;
-          cand += (!match) & (run >= l_min);
-          run = match ? run + 1 : 0;
-        }
-      }
-      cand += run >= l_min;  // a run live at the last valid row ends there
-    }
-  }
-  counts[static_cast<size_t>(p) * n_out + d] = cand;
-}
-
-// The same walk for buckets whose rows do not fit in shared memory: the
-// block stages one 512-row block of src and the dst words its 256 diagonals
-// read there at a time, and skips a masked-off row block.
-__global__ void __launch_bounds__(kThreads)
-diag_runs_blocked_kernel(const int32_t* __restrict__ nv,
-                         const int32_t* __restrict__ mv,
-                         const int32_t* __restrict__ lm,
-                         const int32_t* __restrict__ thr,
-                         const int32_t* __restrict__ bm, int n_groups,
-                         const uint32_t* __restrict__ src,
-                         const uint32_t* __restrict__ dst,
-                         int32_t* __restrict__ counts, int n_pad, int n_out) {
-  __shared__ uint32_t s_src[kDTile];
-  __shared__ uint32_t s_dst[kStageDst];
-  const int p = blockIdx.y;
-  const uint32_t* g_src = src + static_cast<size_t>(p) * n_pad;
-  const uint32_t* g_dst = dst + static_cast<size_t>(p) * n_pad;
-  const int n_diag = 2 * n_pad - 1;
-  const int nv_p = min(nv[p], n_pad);
-  const int mv_p = min(mv[p], n_pad);
-  const int l_min = max(lm[p], 1);
-  const int t = thr[p];
-  const int d0 = blockIdx.x * kThreads;
-  const int bits = bm[static_cast<size_t>(p) * n_groups + d0 / (kGTiles * kDTile)];
-
-  const int d = d0 + threadIdx.x;
-  const int o = d - (n_pad - 1);
-  const int lo = max(1, 1 - o);
-  const int hi = min(nv_p, mv_p - o);
-  const bool live = d < n_diag && lo < hi;
-  const int o0 = d0 - (n_pad - 1);
-  const int o_last = min(d0 + kThreads, n_diag) - 1 - (n_pad - 1);
-  const int lo_u = max(1, 1 - o_last);
-  const int hi_u = min(nv_p, mv_p - o0);
-
-  int run = 0;
-  int cand = 0;
-  for (int b = (lo_u + 1) / kDTile; lo_u < hi_u && b <= hi_u / kDTile; ++b) {
-    const bool mine = live && b >= (lo + 1) / kDTile && b <= hi / kDTile;
-    if (((bits >> min(b, 31)) & 1) == 0) {
-      if (mine) {
-        cand += run >= l_min;  // flush the carry at the gap
-        run = 0;
-      }
-      continue;
-    }
-    const int rb = b * kDTile - 1;  // first row of block b
-    __syncthreads();  // every thread is done with the previous row block
-    for (int k = threadIdx.x; k < kDTile; k += kThreads) {
-      const int i = rb + k;
-      s_src[k] = (i >= 0 && i < n_pad) ? g_src[i] : 0u;
-    }
-    for (int k = threadIdx.x; k < kStageDst; k += kThreads) {
-      const int j = rb + o0 + k;
-      s_dst[k] = (j >= 0 && j < n_pad) ? g_dst[j] : 0u;
-    }
-    __syncthreads();
-    if (mine) {
-      // row i of diagonal o reads dst[i + o] = s_dst[i - rb + threadIdx.x]
-      const int r0 = max(lo, rb);
-      const int r1 = min(hi, rb + kDTile);
-      for (int i = r0; i < r1; ++i) {
-        const bool match =
-            __popc(s_src[i - rb] ^ s_dst[i - rb + threadIdx.x]) <= t;
-        cand += (!match) & (run >= l_min);
-        run = match ? run + 1 : 0;
-      }
-    }
-  }
-  if (live) cand += run >= l_min;  // a run live at the last valid row ends there
-  if (d < n_out) counts[static_cast<size_t>(p) * n_out + d] = cand;
-}
-
-// Argument checks shared by both entry points; 0 when the launch may go on.
-int check_launch(int chunk, int n_pad, int n_out, int n_groups) {
-  if (chunk < 0 || chunk > 65535 || n_pad <= 0 || n_out < 0 || n_groups <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
-}
-
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
@@ -543,7 +396,8 @@ extern "C" int needle_diag_runs(const void* nv, const void* mv, const void* lm,
                                 const void* src, const void* dst, void* counts,
                                 int chunk, int n_pad, int n_out, void* stream) {
   if (chunk == 0 || n_out == 0) return static_cast<int>(cudaSuccess);
-  if (const int err = check_launch(chunk, n_pad, n_out, n_groups)) return err;
+  if (chunk < 0 || chunk > 65535 || n_pad <= 0 || n_out < 0 || n_groups <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_out + kBand - 1) / kBand, chunk);
   diag_runs_mma_kernel<<<grid, kBand, 0,
                          static_cast<cudaStream_t>(stream)>>>(
@@ -552,42 +406,5 @@ extern "C" int needle_diag_runs(const void* nv, const void* mv, const void* lm,
       static_cast<const int32_t*>(bm), n_groups, static_cast<const uint32_t*>(src),
       static_cast<const uint32_t*>(dst), static_cast<int32_t*>(counts), n_pad,
       n_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The previous design, same arguments and result: whole-row staging where
-// both rows fit in shared memory (n_pad <= 29,056), per-row-block above.
-extern "C" int needle_diag_runs_popc(const void* nv, const void* mv,
-                                     const void* lm, const void* thr,
-                                     const void* bm, int n_groups,
-                                     const void* src, const void* dst,
-                                     void* counts, int chunk, int n_pad,
-                                     int n_out, void* stream) {
-  if (chunk == 0 || n_out == 0) return static_cast<int>(cudaSuccess);
-  if (const int err = check_launch(chunk, n_pad, n_out, n_groups)) return err;
-  const dim3 grid((n_out + kThreads - 1) / kThreads, chunk);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* nv_ = static_cast<const int32_t*>(nv);
-  const int32_t* mv_ = static_cast<const int32_t*>(mv);
-  const int32_t* lm_ = static_cast<const int32_t*>(lm);
-  const int32_t* thr_ = static_cast<const int32_t*>(thr);
-  const int32_t* bm_ = static_cast<const int32_t*>(bm);
-  const uint32_t* src_ = static_cast<const uint32_t*>(src);
-  const uint32_t* dst_ = static_cast<const uint32_t*>(dst);
-  int32_t* counts_ = static_cast<int32_t*>(counts);
-  const size_t smem = 2 * static_cast<size_t>(n_pad) * sizeof(uint32_t);
-  if (smem > kMaxSmemBytes) {
-    diag_runs_blocked_kernel<<<grid, kThreads, 0, s>>>(
-        nv_, mv_, lm_, thr_, bm_, n_groups, src_, dst_, counts_, n_pad, n_out);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (smem > kDefaultSmemBytes) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        diag_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  diag_runs_kernel<<<grid, kThreads, smem, s>>>(
-      nv_, mv_, lm_, thr_, bm_, n_groups, src_, dst_, counts_, n_pad, n_out);
   return static_cast<int>(cudaGetLastError());
 }

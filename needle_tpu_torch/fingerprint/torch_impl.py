@@ -1,27 +1,25 @@
 """Fingerprinting on PyTorch: port of the device paths of
 needle_tpu/fingerprint/jax_impl.py.
 
-Two entries share one core:
-
-- the fused raw-PCM ingest (`IngestDispatcher`, `fingerprint_ingest_batch`):
-  zero samples past each lane's valid count -> integer half-band
-  decimation (/2 or /4, exact int32 arithmetic) -> integer downmix ->
-  polyphase windowed-sinc resample to 11025 Hz as one matmul -> the core;
-- the pre-decoded mono route (`fingerprint_batch`): mono i16 at 11025 Hz
-  (compressed media, decoded on the host) -> the core.
+Every episode takes one route onto the device, the fused ingest
+(`IngestDispatcher`, `fingerprint_ingest_batch`): zero samples past each
+lane's valid count -> integer half-band decimation (/2 or /4, exact int32
+arithmetic) -> integer downmix -> polyphase windowed-sinc resample to
+11025 Hz as one matmul -> the core. Mono i16 already at 11025 Hz
+(compressed media, decoded on the host; `fingerprint_batch`) is a lane at
+that rate, where decimation and resample do nothing.
 
 The core: 4096-sample frames at hop 1365 -> windowed DFT as two matmuls ->
 chroma fold -> 5-tap chroma filter -> L2 normalize -> 16 classifiers as one
 matmul -> software log -> 3-threshold quantize -> gray code -> u32
 packing, plus per-hash borderline flags: a classifier value (or chroma
 norm) within `plan._exact_eps()` of a threshold marks its hash for
-recomputation by a canonical host oracle (ingest_oracle.py for the
-ingest, numpy_impl for the mono route), so the returned hashes are
-exactly the oracle's on every device. Every function takes the batch
-(lane) dimension written out where the JAX version used vmap. Matmuls run
-in full float32 (`_torch_setup.ensure`); the classifier values agree with
-the JAX program's to float32 rounding (summation order differs), far
-inside the margin.
+recomputation by the canonical host oracle (ingest_oracle.py), so the
+returned hashes are exactly the oracle's on every device. Every function
+takes the batch (lane) dimension written out where the JAX version used
+vmap. Matmuls run in full float32 (`_torch_setup.ensure`); the classifier
+values agree with the JAX program's to float32 rounding (summation order
+differs), far inside the margin.
 """
 
 from __future__ import annotations
@@ -56,7 +54,6 @@ from .decimate import (
 )
 from .numpy_impl import (
     downmix_stereo_i16,
-    fingerprint_numpy_window,
     merge_flag_ranges,
     num_frames,
     num_subfingerprints,
@@ -733,69 +730,12 @@ def ingest_classifier_values(
     )
 
 
-# -- pre-decoded mono route ----------------------------------------------------
-
-
 def fingerprint_batch(monos: Sequence[np.ndarray], device="cuda") -> List[np.ndarray]:
     """Fingerprint a batch of mono i16 episodes at 11025 Hz on `device`
-    (port of fingerprint_jax_batch).
-
-    Episodes are grouped by frame bucket and run in chunks of LANES lanes
-    (the tail chunk padded with silent lanes). The core also flags hashes
-    whose quantization landed within the borderline margin of a threshold;
-    those are recomputed with the host oracle (numpy_impl), so the
+    (port of fingerprint_jax_batch): the fused ingest at the core's rate,
+    where no resample runs and the lanes are the samples themselves. The
     returned hashes are exactly fingerprint_numpy's."""
-    monos = [np.asarray(m, dtype=np.int16) for m in monos]
-    if not monos:
-        return []
-    dev = resolve_device(device)
-    n_subs = [num_subfingerprints(len(m)) for m in monos]
-    results = [np.zeros(0, np.uint32) for _ in monos]
-    flags: List[np.ndarray] = [None] * len(monos)
-    groups: dict = {}
-    for idx, m in enumerate(monos):
-        if n_subs[idx] > 0:
-            groups.setdefault(bucket_frames(num_frames(len(m))), []).append(idx)
-
-    tables = _device_tables(dev)
-    launched = []
-    for nf_b, idxs in sorted(groups.items()):
-        pad_len = (nf_b + _ROWS_PER_FRAME + 1) * HOP_SIZE
-        for c0 in range(0, len(idxs), LANES):
-            lane_idxs = idxs[c0 : c0 + LANES]
-            batch = np.zeros((LANES, pad_len), np.int16)
-            for r, si in enumerate(lane_idxs):
-                m = monos[si]
-                batch[r, : min(len(m), pad_len)] = m[:pad_len]
-            x = torch.from_numpy(batch).to(dev).to(torch.float32)
-            launched.append(
-                (lane_idxs, _fingerprint_core(x, *tables, nf_b, with_flags=True))
-            )
-    for lane_idxs, (hashes, flag_rows) in launched:
-        hashes = hashes.cpu().numpy()
-        flag_rows = flag_rows.cpu().numpy()
-        for r, si in enumerate(lane_idxs):
-            results[si] = hashes[r, : n_subs[si]].astype(np.uint32)
-            flags[si] = flag_rows[r, : n_subs[si]]
-    _rescan_borderline(monos, results, flags)
-    return results
-
-
-def _rescan_borderline(monos, results, flags) -> None:
-    """Recompute flagged (borderline-quantized) subfingerprints with the
-    host oracle, in place. Flagged runs are merged into ranges so the
-    ~19-frame dependency overhead is shared."""
-    from ..tracing import span
-
-    total = sum(int(f.sum()) for f in flags if f is not None)
-    if not total:
-        return
-    with span("fingerprint.rescan", flagged=total):
-        for idx, f in enumerate(flags):
-            if f is None or not f.any():
-                continue
-            for lo, hi in merge_flag_ranges(np.nonzero(f)[0]):
-                results[idx][lo:hi] = fingerprint_numpy_window(monos[idx], lo, hi)
+    return fingerprint_ingest_batch(monos, SAMPLE_RATE, 1, device=device)
 
 
 def fingerprint(mono_i16: np.ndarray, device="cuda") -> np.ndarray:
@@ -812,16 +752,13 @@ def fingerprint_stereo(interleaved_i16: np.ndarray, device="cuda") -> np.ndarray
 def classifier_values(mono_i16: np.ndarray, device="cuda"):
     """The pre-quantization classifier values (n_sub, 16) and per-frame
     chroma norms of one mono 11025 Hz segment, computed by the production
-    core on `device` (port of classifier_values_jax), for comparison with
-    the float64 oracle against the borderline margin."""
+    program on `device` (port of classifier_values_jax), for comparison
+    with the float64 oracle against the borderline margin."""
     mono = np.asarray(mono_i16, dtype=np.int16)
     nf = num_frames(len(mono))
     if nf <= 0:
         return np.zeros((0, 16), np.float32), np.zeros((0,), np.float32)
-    dev = resolve_device(device)
-    pad_len = (nf + _ROWS_PER_FRAME + 1) * HOP_SIZE
-    buf = np.zeros((1, pad_len), np.int16)
-    buf[0, : min(len(mono), pad_len)] = mono[:pad_len]
-    x = torch.from_numpy(buf).to(dev).to(torch.float32)
-    values, norms = _fingerprint_core(x, *_device_tables(dev), nf, with_values=True)
-    return values[0].cpu().numpy(), norms[0].cpu().numpy()
+    values, norms, _, _ = ingest_classifier_values(mono, SAMPLE_RATE, 1,
+                                                   device=device)
+    # the norms of the frames the segment has, not of its frame bucket
+    return values, norms[: max(0, nf - (len(CHROMA_FILTER_COEFFS) - 1))]

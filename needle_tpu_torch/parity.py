@@ -27,8 +27,7 @@ show that it was taken:
 
 and each under every formulation of the count walk, swapped in by
 rebinding `search.torch_impl.batch_counts`: `kernel` (the CUDA kernel,
-diag_runs.batch_counts), `previous` (its previous design,
-batch_counts_popc) and `plain` (batch_counts_reference, on the same
+diag_runs.batch_counts) and `plain` (batch_counts_reference, on the same
 device). On the CPU only `plain` runs.
 
 It also measures the classifier values' and chroma norms' error against
@@ -64,7 +63,6 @@ from .duration import Duration
 # count walk formulation -> its function in search.diag_runs
 FORMULATIONS = {
     "kernel": "batch_counts",
-    "previous": "batch_counts_popc",
     "plain": "batch_counts_reference",
 }
 # route -> (knobs, library set)
@@ -311,7 +309,7 @@ def route_parity(route, libs, oracle, device, formulations):
            "direct_items": 0, "launches": {}, "mismatches": []}
     for name in formulations:
         before = metrics.snapshot()
-        launches = diag_runs.LAUNCHES, diag_runs.LAUNCHES_POPC
+        launches = diag_runs.LAUNCHES
         t0 = time.perf_counter()
         with environment(knobs), Probe(name) as probe:
             for lib, fhs, thr, mo, endings in libs:
@@ -333,15 +331,10 @@ def route_parity(route, libs, oracle, device, formulations):
         items = grew("search.direct_items")
         out["pairs_skipped"] += skipped
         out["direct_items"] += items
-        # the card's launch counters move only for their own formulation
-        moved = (diag_runs.LAUNCHES - launches[0],
-                 diag_runs.LAUNCHES_POPC - launches[1])
         out["launches"][name] = probe.calls["walk"]
         taken = _route_taken(route, probe.calls, skipped, items)
         if name == "kernel":
-            taken = taken and moved == (probe.calls["walk"], 0)
-        elif name == "previous":
-            taken = taken and moved == (0, probe.calls["walk"])
+            taken = taken and diag_runs.LAUNCHES - launches == probe.calls["walk"]
         out["taken"] = out["taken"] and taken
     out["exact"] = not out["mismatches"]
     if not out["mismatches"]:

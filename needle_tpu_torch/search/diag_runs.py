@@ -5,10 +5,9 @@ hand-written kernel csrc/diag_runs.cu (Hamming distances on the int8
 tensor cores, match bits packed 32 rows a word along each diagonal, runs
 counted per word) for CUDA tensors; for CPU tensors it runs
 `batch_counts_reference`, the plain PyTorch formulation, which is also what
-the kernel is held against on the card. `batch_counts_popc` launches the
-previous design (one thread per diagonal, a popcount per cell), kept only
-to time the two in one process. `match_words` and `runs_from_words` are a
-CPU model of the kernel's run bookkeeping, for the tests.
+the kernel is held against on the card. `match_words` and
+`runs_from_words` are a CPU model of the kernel's run bookkeeping, for
+the tests.
 
 Hashes travel as int32 bit patterns (torch has no usable uint32 shifts on
 the CPU); `popcount32` widens to int64 before shifting, since `>>` on int32
@@ -32,8 +31,6 @@ G_TILES = 8  # diagonal tiles per mask group
 # Kernel launches in this process; a run reads it to show that the count
 # walk went through the CUDA kernel.
 LAUNCHES = 0
-# Launches of the previous design (batch_counts_popc), counted apart.
-LAUNCHES_POPC = 0
 
 # Cells (pairs x rows x diagonals) per slab of the plain version: bounds
 # its intermediates to a few hundred MB.
@@ -144,32 +141,6 @@ def _check_operands(nv, mv, lm, thr, src, dst, n_pad, bm):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(entry, nv, mv, lm, thr, src, dst, n_pad, bm):
-    """Run C entry point `entry` of the kernel library on CUDA operands;
-    returns the (chunk, n_tiles*512) int32 counts."""
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
-    chunk = src.shape[0]
-    if bm is None:
-        bm = torch.full(
-            (chunk, n_groups_for(n_pad)), int(full_block_mask(n_pad)),
-            dtype=torch.int32, device=src.device,
-        )
-    _check_operands(nv, mv, lm, thr, src, dst, n_pad, bm)
-    n_out = n_tiles_for(n_pad) * D_TILE
-    counts = torch.empty((chunk, n_out), dtype=torch.int32, device=src.device)
-    if chunk == 0:
-        return counts
-    err = getattr(_build.load(), entry)(
-        nv.data_ptr(), mv.data_ptr(), lm.data_ptr(), thr.data_ptr(),
-        bm.data_ptr(), bm.shape[1], src.data_ptr(), dst.data_ptr(),
-        counts.data_ptr(), chunk, n_pad, n_out,
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _build.check(err, entry)
-    return counts
-
-
 def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
     """Per-diagonal candidate counts of a chunk of pairs.
 
@@ -185,20 +156,27 @@ def batch_counts(nv, mv, lm, thr, src, dst, n_pad, bm=None):
     global LAUNCHES
     if src.device.type == "cpu":
         return batch_counts_reference(nv, mv, lm, thr, src, dst, n_pad, bm)
-    counts = _launch("needle_diag_runs", nv, mv, lm, thr, src, dst, n_pad, bm)
-    if src.shape[0]:
-        LAUNCHES += 1
-    return counts
-
-
-def batch_counts_popc(nv, mv, lm, thr, src, dst, n_pad, bm=None):
-    """`batch_counts` by the previous design (needle_diag_runs_popc: one
-    thread per diagonal, a popcount per cell), on CUDA tensors only. Kept
-    as a yardstick for the kernel; the search never calls it."""
-    global LAUNCHES_POPC
-    counts = _launch("needle_diag_runs_popc", nv, mv, lm, thr, src, dst, n_pad, bm)
-    if src.shape[0]:
-        LAUNCHES_POPC += 1
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    chunk = src.shape[0]
+    if bm is None:
+        bm = torch.full(
+            (chunk, n_groups_for(n_pad)), int(full_block_mask(n_pad)),
+            dtype=torch.int32, device=src.device,
+        )
+    _check_operands(nv, mv, lm, thr, src, dst, n_pad, bm)
+    n_out = n_tiles_for(n_pad) * D_TILE
+    counts = torch.empty((chunk, n_out), dtype=torch.int32, device=src.device)
+    if chunk == 0:
+        return counts
+    err = _build.load().needle_diag_runs(
+        nv.data_ptr(), mv.data_ptr(), lm.data_ptr(), thr.data_ptr(),
+        bm.data_ptr(), bm.shape[1], src.data_ptr(), dst.data_ptr(),
+        counts.data_ptr(), chunk, n_pad, n_out,
+        torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    _build.check(err, "needle_diag_runs")
+    LAUNCHES += 1
     return counts
 
 

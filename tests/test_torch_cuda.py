@@ -1,6 +1,5 @@
 """The port on a CUDA card: the hand-written count walk kernel against its
-plain PyTorch version and against the previous design (batch_counts_popc),
-and the search engine, the
+plain PyTorch version, and the search engine, the
 prefilter, the fused ingest and the mono fingerprint route on the card
 against the same code on the CPU or the numpy oracle; the fused ingest's
 dispatches without a synchronisation, from page-locked slots; the exact
@@ -60,8 +59,8 @@ def _planted_operands(rng, n_pad, chunk, thr_values, lm_values):
 
 
 def _check_kernel(dev, nv, mv, lm, thr, src, dst, bm, n_pad):
-    """batch_counts on the card: one launch, exact against the plain version
-    and the previous design; returns the counts."""
+    """batch_counts on the card: one launch, exact against the plain
+    version; returns the counts."""
     from needle_tpu_torch.search import diag_runs as D
 
     args = [_t(a, dev) for a in (nv, mv, lm, thr, src, dst)] + [n_pad, _t(bm, dev)]
@@ -70,7 +69,6 @@ def _check_kernel(dev, nv, mv, lm, thr, src, dst, bm, n_pad):
     torch.cuda.synchronize()
     assert D.LAUNCHES == before + 1
     assert torch.equal(got, D.batch_counts_reference(*args))
-    assert torch.equal(got, D.batch_counts_popc(*args))
     return got
 
 
@@ -83,8 +81,8 @@ def _check_kernel(dev, nv, mv, lm, thr, src, dst, bm, n_pad):
 def test_kernel_equals_reference(dev, n_pad, chunk, thr_values, lm_values):
     """Exact on planted runs with nv/mv < n_pad, thr 0 and 10, l_min 1,
     band masks with gaps and a padding lane, at every size: 7168 (whose
-    rows took more than 48 KB of shared memory in the previous design) and
-    32768 (whose rows do not fit at all) go through the same tile-by-tile
+    two hash rows take more than 48 KB) and 32768 (whose rows would not
+    fit in shared memory at all) go through the same tile-by-tile
     staging as 512; at 2560 also thr 16 and 32 (a zero vector matches, so
     only the validity predicate keeps invalid cells out) and l_min 31, 32,
     33 and 64 (runs counted across word edges)."""
@@ -99,7 +97,7 @@ def test_kernel_equals_reference(dev, n_pad, chunk, thr_values, lm_values):
 def test_kernel_short_lanes_at_high_thresholds(dev, thr):
     """n_pad 512, thr 16 or 32: lanes with nv or mv of 0, 1 and 2 (nothing
     or a single row valid), beside full lanes, every l_min of 1, 31, 32, 33
-    and 64; exact against the plain version and the previous design."""
+    and 64; exact against the plain version."""
     rng = np.random.default_rng(thr)
     n_pad = 512
     nv, mv, lm, thr_a, src, dst, bm = _planted_operands(
@@ -128,23 +126,6 @@ def test_kernel_run_across_masked_gap(dev):
     bm[:, 0] &= ~np.int32(1 << 2)  # block 2 (rows 1023..1534) masked
     got = _check_kernel(dev, nv, nv, lm, thr, src, dst, bm, n_pad)
     assert got[:, n_pad - 1].tolist() == [2, 1]  # 1022 and 513 rows
-
-
-def test_kernel_equals_previous_design(dev):
-    """batch_counts == batch_counts_popc on the season's shape (512 lanes
-    at n_pad 2560); the previous design is counted apart."""
-    from needle_tpu_torch.search import diag_runs as D
-
-    rng = np.random.default_rng(2560)
-    nv, mv, lm, thr, src, dst, bm = _planted_operands(
-        rng, 2560, 512, (10, 0), (1, 81))
-    args = [_t(a, dev) for a in (nv, mv, lm, thr, src, dst)] + [2560, _t(bm, dev)]
-    before, before_popc = D.LAUNCHES, D.LAUNCHES_POPC
-    got, prev = D.batch_counts(*args), D.batch_counts_popc(*args)
-    torch.cuda.synchronize()
-    assert (D.LAUNCHES, D.LAUNCHES_POPC) == (before + 1, before_popc + 1)
-    assert torch.equal(got, prev)
-    assert int((got > 0).sum()) >= 500
 
 
 def test_kernel_rejects_bad_operands(dev):
@@ -484,13 +465,13 @@ def test_nccl_world_of_one(dev):
 def test_parity_harness_on_card(dev):
     """needle_tpu_torch.parity on the card: every route (walk-all, band by
     episode tiles and per pair, the pair prefilter at n_pad 16,384, direct
-    flagging) taken and RunEntry-exact under the kernel, its previous
-    design and the plain version; value errors and hashes hold."""
+    flagging) taken and RunEntry-exact under the kernel and the plain
+    version; value errors and hashes hold."""
     from needle_tpu_torch import parity
 
     out = parity.run(["--device", "cuda", "--trials", "2", "--eps-seconds", "10"])
     assert out["ok"], out
-    assert out["kernels"] == ["kernel", "previous", "plain"]
+    assert out["kernels"] == ["kernel", "plain"]
     assert sorted(out["routes"]) == sorted(parity.ROUTES)
     for route, r in out["routes"].items():
         assert r["exact"] and r["taken"], (route, r)

@@ -1,6 +1,7 @@
 """The port's pre-decoded mono route (needle_tpu_torch fingerprint_batch and
-the Analyzer's compressed-media path, on the CPU) against needle_tpu's JAX
-program on the CPU and the numpy oracle.
+the Analyzer's compressed-media path, both lanes of the fused ingest at
+11025 Hz, on the CPU) against needle_tpu's JAX program on the CPU and the
+numpy oracle.
 
 Hashes are compared exactly (the borderline rescan makes them the
 oracle's). Classifier values are compared within 5e-6, half the 1e-5
@@ -28,11 +29,13 @@ def _mono(rng, secs, noise=False):
 
 
 def _spy_rescan(monkeypatch):
+    """The flagged hashes of each chunk the ingest rescans (span
+    ingest.rescan, on the rescan worker)."""
     flagged = []
     orig = tracing.span
 
     def spy(name, **kw):
-        if name == "fingerprint.rescan":
+        if name == "ingest.rescan":
             flagged.append(kw.get("flagged", 0))
         return orig(name, **kw)
 
@@ -53,14 +56,16 @@ def test_fingerprint_batch_equals_jax_and_numpy(rng, monkeypatch, eps):
     monos.append(np.zeros(100, np.int16))
     got = T.fingerprint_batch(monos, device="cpu")
     want = J.fingerprint_jax_batch(monos)
-    assert len(got) == len(monos)
-    for g, w, m in zip(got, want, monos):
+    ingest = T.fingerprint_ingest_batch(monos, RATE, 1, device="cpu")
+    assert len(got) == len(monos) == len(ingest)
+    for g, w, i, m in zip(got, want, ingest, monos):
         assert g.dtype == np.uint32
         np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, i)
         np.testing.assert_array_equal(g, fingerprint_numpy(m))
     assert len(got[-1]) == 0
     if eps is not None:
-        assert flagged and flagged[0] > 10
+        assert flagged and sum(flagged) > 10
 
 
 def test_wrappers_equal_jax(rng):
@@ -79,6 +84,7 @@ def test_classifier_values_close_to_jax(rng, noise):
     vt, nt = T.classifier_values(mono, device="cpu")
     vj, nj = J.classifier_values_jax(mono)
     assert vt.shape == vj.shape and vt.dtype == np.float32
+    assert nt.shape == nj.shape
     assert np.max(np.abs(vt - vj)) < VALUE_TOL
     np.testing.assert_allclose(nt, nj, rtol=1e-5, atol=1e-6)
     empty = T.classifier_values(np.zeros(10, np.int16), device="cpu")
