@@ -26,8 +26,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
+import os
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import List, Sequence
 
 import numpy as np
@@ -399,6 +401,90 @@ def _page_faults():
     return r.ru_minflt + r.ru_majflt
 
 
+# each piece of a split lane copy holds at least this many bytes: a chunk
+# with fewer valid bytes than two pieces is copied by the staging thread
+COPY_PIECE_BYTES = 4 << 20
+
+
+def _copy_threads() -> int:
+    """Threads that share a chunk's lane copy with the staging thread: the
+    usable cores less that thread's own, at most LANES; 0 where that leaves
+    fewer than two."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity on macOS and Windows
+        cores = os.cpu_count() or 1
+    n = min(cores - 1, LANES)
+    return n if n >= 2 else 0
+
+
+def _lane_pieces(extents, n: int) -> list:
+    """The lanes' [0, extent) ranges laid end to end and cut into n runs of
+    near-equal length: for each run, its (lane, start, end) ranges."""
+    starts = [0, *itertools.accumulate(extents)]
+    bounds = [starts[-1] * k // n for k in range(n + 1)]
+    return [[(r, max(lo, s0) - s0, min(hi, s0 + e) - s0)
+             for r, (s0, e) in enumerate(zip(starts, extents))
+             if max(lo, s0) < min(hi, s0 + e)]
+            for lo, hi in zip(bounds, bounds[1:])]
+
+
+def _copy_piece(buf, lanes, piece):
+    """Copy one piece into the (LANES, in_len) `buf`: for each (r, a, b) of
+    `piece`, lane r's samples [a, b) from its segment, zeros where they lie
+    past it (`lanes[r]` is (segment, samples taken from it)). Returns the
+    calling thread's page faults over the copy, or None."""
+    faults0 = _page_faults()
+    for r, a, b in piece:
+        s, take = lanes[r]
+        m = min(b, max(a, take))
+        buf[r, a:m] = s[a:m]
+        buf[r, m:b] = 0
+    return None if faults0 is None else _page_faults() - faults0
+
+
+class _CopyPool:
+    """The threads that copy a lane chunk's pieces beside the thread staging
+    it, started at first use and kept for the process (like `_staging`):
+    NumPy releases the GIL while it copies a piece, so the episodes' pages
+    are read on every core at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pool, self._threads, self._pid = None, 0, None
+
+    def _executor(self):
+        with self._lock:
+            # a forked child inherits the executor but not its threads
+            if self._pid != os.getpid():
+                self._threads, self._pid = _copy_threads(), os.getpid()
+                self._pool = (ThreadPoolExecutor(
+                    self._threads, thread_name_prefix="needle-copy")
+                    if self._threads else None)
+            return self._pool, self._threads
+
+    def copy(self, buf, lanes, extents, nbytes: int):
+        """Copy every lane's [0, extent) into `buf` (`_copy_piece`), split
+        into up to one piece a thread, the caller's included, of at least
+        COPY_PIECE_BYTES of the `nbytes` valid bytes; below two such
+        pieces the caller copies alone. Returns (the copying threads' page
+        faults or None, whether the copy was split). Every piece has ended
+        when this returns or raises a piece's exception."""
+        pool, threads = self._executor()
+        n = min(threads + 1, nbytes // COPY_PIECE_BYTES) if pool else 1
+        pieces = _lane_pieces(extents, max(n, 1))
+        futures = [pool.submit(_copy_piece, buf, lanes, p) for p in pieces[1:]]
+        try:
+            faults = [_copy_piece(buf, lanes, pieces[0])]
+        finally:
+            wait(futures)  # no piece may write the slot once it is released
+        faults += [f.result() for f in futures]
+        return (None if None in faults else sum(faults)), bool(futures)
+
+
+_copy_pool = _CopyPool()
+
+
 class IngestDispatcher:
     """Raw-PCM ingest on one device. add() records segments (memmap views
     are fine: no bytes move yet); a chunk of LANES segments of one frame
@@ -481,23 +567,23 @@ class IngestDispatcher:
                                else "ingest.staging_misses", 1.0)
                 buf, nv_h = raw.numpy().reshape(LANES, in_len), nv.numpy()
                 nv_h[len(segs):] = 0
+                lanes, extents = [], []
+                for r, (s, n_valid) in enumerate(segs):
+                    nv_h[r] = n = min(n_valid, in_len) // self.channels
+                    extents.append(n * self.channels)
+                    lanes.append((s, min(len(s), extents[-1])))
+                copied = sum(take for _, take in lanes) * buf.itemsize
                 # only the valid samples are copied and the lane is not
                 # cleared: the device zeroes every frame at or past nv, so
                 # what an earlier chunk left there is never read. The copy
                 # reads the episodes: a memmap's pages fault in here
-                faults0 = _page_faults()
                 with span("ingest.lane_copy"):
-                    copied = 0
-                    for r, (s, n_valid) in enumerate(segs):
-                        nv_h[r] = n = min(n_valid, in_len) // self.channels
-                        take = min(len(s), n * self.channels)
-                        buf[r, :take] = s[:take]
-                        buf[r, take : n * self.channels] = 0
-                        copied += take * buf.itemsize
-                if faults0 is not None:
-                    metrics.record("ingest.lane_copy_faults",
-                                   float(_page_faults() - faults0))
+                    faults, split = _copy_pool.copy(buf, lanes, extents, copied)
+                if faults is not None:
+                    metrics.record("ingest.lane_copy_faults", float(faults))
                 metrics.record("ingest.lane_bytes", float(copied))
+                metrics.record("ingest.lane_copy_pool_bytes",
+                               float(copied if split else 0))
                 # the source stage's work: the lanes' valid frames in, and
                 # the mid-rate mono samples they yield out
                 frames = nv_h[: len(segs)].astype(np.int64)
@@ -666,10 +752,10 @@ class IngestDispatcher:
         an error in the worker is raised here."""
         from ..tracing import span
 
-        for nf_b in list(self._pending):
-            self._dispatch(nf_b)
         results = dict(self._empty)
         try:
+            for nf_b in list(self._pending):
+                self._dispatch(nf_b)
             with span("ingest.rescan_wait"):
                 for chunk, future in self._chunks:
                     results.update(self._collect_and_rescan(*chunk)
